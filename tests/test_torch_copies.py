@@ -1,0 +1,90 @@
+"""The port's host-side copies equal their JAX-package originals, and the port
+imports neither JAX nor ``vda_tpu``."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import vda_tpu.config as jconfig
+from vda_tpu.infer import stitching as jstitch
+from vda_tpu.infer.windowed import window_source_indices as jwindows
+from vda_tpu.ops import resize as jresize
+
+import vda_tpu_torch.config as tconfig
+from vda_tpu_torch.infer import stitching as tstitch
+from vda_tpu_torch.infer.windowed import window_source_indices as twindows
+from vda_tpu_torch.ops import resize as tresize
+from vda_tpu_torch.utils import transform as ttransform
+from vda_tpu.utils import transform as jtransform
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONSTANTS = ["INFER_LEN", "OVERLAP", "KEYFRAMES", "INTERP_LEN", "ALIGN_LEN",
+             "KF_ALIGN_LIST", "STREAM_GAP", "STREAM_MAX_CACHE",
+             "NUM_CACHE_TENSORS", "PATCH_SIZE", "IMAGENET_MEAN",
+             "IMAGENET_STD", "MAX_ASPECT_RATIO"]
+
+
+@pytest.mark.parametrize("name", CONSTANTS)
+def test_config_constants_equal(name):
+    assert getattr(tconfig, name) == getattr(jconfig, name)
+
+
+@pytest.mark.parametrize("name", sorted(jconfig.MODEL_CONFIGS))
+def test_model_configs_equal(name):
+    j, t = jconfig.MODEL_CONFIGS[name], tconfig.MODEL_CONFIGS[name]
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert [f.name for f in dataclasses.fields(t)] == \
+        [f.name for f in dataclasses.fields(j)]
+    assert sorted(tconfig.MODEL_CONFIGS) == sorted(jconfig.MODEL_CONFIGS)
+    assert tconfig.checkpoint_name(name) == jconfig.checkpoint_name(name)
+
+
+@pytest.mark.parametrize("n_frames", [1, 5, 22, 32, 40, 54, 100, 111])
+def test_window_source_indices_equal(n_frames):
+    np.testing.assert_array_equal(twindows(n_frames), jwindows(n_frames))
+
+
+@pytest.mark.parametrize("metric", [False, True])
+def test_stitch_windows_equal(metric):
+    rng = np.random.default_rng(3)
+    depths = [rng.random((6, 7)).astype(np.float32) + 0.1
+              for _ in range(3 * tconfig.INFER_LEN)]
+    got = tstitch.stitch_windows(depths, metric=metric)
+    ref = jstitch.stitch_windows(depths, metric=metric)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("builder", ["_linear_matrix", "_cubic_matrix"])
+@pytest.mark.parametrize("args", [(37, 74, True, None), (296, 518, True, None),
+                                  (70, 56, False, None), (4, 5, False, 1.3),
+                                  (1, 3, True, None), (9, 1, True, None)])
+def test_resize_matrices_equal(builder, args):
+    np.testing.assert_array_equal(getattr(tresize, builder)(*args),
+                                  getattr(jresize, builder)(*args))
+
+
+@pytest.mark.parametrize("hw", [(70, 90), (1080, 1920), (480, 270), (50, 200)])
+def test_resize_policy_equal(hw):
+    for size in (56, 518):
+        assert ttransform.effective_input_size(*hw, size) == \
+            jtransform.effective_input_size(*hw, size)
+        assert ttransform.compute_resize_hw(*hw, size) == \
+            jtransform.compute_resize_hw(*hw, size)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys; import vda_tpu_torch, vda_tpu_torch.ops, "
+            "vda_tpu_torch.infer.windowed, vda_tpu_torch.utils.convert; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'vda_tpu.')) or m == 'vda_tpu']; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -1,0 +1,41 @@
+"""The port's profiling tool: the parts that need no device."""
+
+import pytest
+
+from vda_tpu_torch.utils import profiling
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void vda::(anonymous namespace)::attention_qkv_kernel<__nv_bfloat16, "
+     "64>(...)", "K1 attention_qkv"),
+    ("void vda::(anonymous namespace)::attention_qkv_bf16_kernel<64>(...)",
+     "K1 attention_qkv"),
+    ("_ln_fwd", "K2 layer_norm"),
+    ("void vda::(anonymous namespace)::temporal_block_kernel<float>(...)",
+     "K3 temporal_block"),
+    ("void vda::(anonymous namespace)::attention_block_kernel<float>(...)",
+     "K4 attention_block"),
+    ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_"
+     "impl_nocast<at::native::direct_copy_kernel_cuda(...)", "copy"),
+    ("Memcpy HtoD (Pageable -> Device)", "copy"),
+    ("sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw",
+     "conv (cuDNN)"),
+    ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT", "gemm (cuBLAS)"),
+    ("void at::native::vectorized_elementwise_kernel<8, at::native::"
+     "GeluCUDAKernelImpl(...)", "elementwise"),
+    ("void at::native::reduce_kernel<512, 1>(...)", "reduction"),
+    ("something_else", "other"),
+])
+def test_kernel_kind(name, kind):
+    assert profiling.kernel_kind(name) == kind
+
+
+@pytest.mark.parametrize("intervals,ms", [
+    ([], 0.0),
+    ([(0, 1000)], 1.0),
+    ([(0, 1000), (500, 1500)], 1.5),            # overlapping
+    ([(2000, 3000), (0, 1000)], 2.0),           # disjoint, out of order
+    ([(0, 3000), (1000, 2000), (2500, 4000)], 4.0),  # nested then extended
+])
+def test_busy_ms_is_the_union_of_intervals(intervals, ms):
+    assert profiling.busy_ms(intervals) == pytest.approx(ms)

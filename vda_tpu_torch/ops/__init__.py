@@ -1,0 +1,17 @@
+"""Ops of the port and the launch counters of its four kernels."""
+
+from vda_tpu_torch.ops import attention_kernel, norm_kernel, temporal_kernel
+
+
+def launch_counts() -> dict:
+    """Kernel launches made so far in this process, by kernel."""
+    return {"K1": attention_kernel.launches, "K2": norm_kernel.launches,
+            "K3": temporal_kernel.launches_block,
+            "K4": temporal_kernel.launches_attn}
+
+
+def reset_launch_counts() -> None:
+    attention_kernel.launches = 0
+    norm_kernel.launches = 0
+    temporal_kernel.launches_block = 0
+    temporal_kernel.launches_attn = 0

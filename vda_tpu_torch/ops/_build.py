@@ -1,0 +1,107 @@
+"""Build the CUDA kernels in ``vda_tpu_torch/csrc`` and bind them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface.  Nothing here includes PyTorch's
+headers, so a build takes seconds.  The library is built at first use into
+``csrc/build/`` (listed in ``.gitignore``), named after a hash of the sources
+and flags, so an edited source never loads a stale build.
+
+Each C entry point takes raw device pointers and the CUDA stream as
+``c_void_p``, launches on that stream, and returns ``cudaGetLastError()``;
+``check`` raises when it is not 0 (a refused launch never runs, and a later
+``synchronize`` would not report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U64 = ctypes.c_ulonglong
+# C signatures of the entry points (csrc/*.cu, ``extern "C"``)
+_SIGNATURES = {
+    # qkv, out, B, N, H, D, valid_len, scale, is_bf16, stream
+    "vda_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # BD, T, C, heads, is_bf16, full, *workspace_bytes (out)
+    "vda_temporal_workspace": [_I] * 6 + [ctypes.POINTER(_U64)],
+    # h, out, pe, ln_w, ln_b, wq, wk, wv, wout, bout, ws, ws_bytes, BD, T,
+    # C, heads, is_bf16, stream
+    "vda_attention_block": [_P] * 11 + [_U64] + [_I] * 5 + [_P],
+    # h, out, pe, (ln_w, ln_b, wq, wk, wv, wout, bout) x2, ffn_w, ffn_b,
+    # wproj, bproj, wffo, bffo, ws, ws_bytes, BD, T, C, heads, is_bf16,
+    # stream
+    "vda_temporal_block": [_P] * 24 + [_U64] + [_I] * 5 + [_P],
+}
+
+build_seconds = None  # wall time of the nvcc run in this process, if any
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library.  nvcc's
+    ``-Xptxas -v`` report (registers, spills, shared memory of every kernel)
+    is kept beside the library as ``<library>.ptxas.log``."""
+    global build_seconds
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    so = os.path.join(BUILD_DIR, f"libvda_kernels_{h.hexdigest()[:12]}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cus = [s for s in _sources() if s.endswith(".cu")]
+        t0 = time.perf_counter()
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+                           capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        log = r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+        with open(f"{so}.ptxas.log", "w") as f:
+            f.write(log)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

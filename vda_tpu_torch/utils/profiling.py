@@ -1,0 +1,189 @@
+"""Where the device time of the vitl main path goes, on one CUDA device.
+
+    python -m vda_tpu_torch.utils.profiling [--reps 5] [--frames 54]
+
+Counterpart of ``vda_tpu/utils/profiling.py`` for the port.  Builds vitl
+from ``init_random`` (seed 0), prints the card's ``nvidia-smi`` name and
+power limit, then three JSON lines:
+
+- ``layers``: milliseconds of each layer function of ``models/`` within one
+  bf16 1x32x518x518 window ``forward``, by CUDA events recorded around every
+  call, mean over ``reps`` forwards after a warm-up: the encoder, the tap
+  projections and resize layers, each motion module, the output tail, and
+  by difference the rest of the head and of the forward;
+- ``profile_window``: one window ``forward`` under ``torch.profiler``:
+  device time and launches by kernel kind, the largest kernels, and the
+  device's idle share (1 - union of kernel intervals / host wall time);
+- ``profile_end_to_end``: the same for ``infer_video_depth`` on a
+  ``frames``-frame 518x518 video.
+
+The layer spans wrap module-level functions for the duration of the call
+and are removed after it; nothing is timed unless this tool runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import itertools
+import json
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+# kind -> substrings of the kernel name; the first kind that matches wins
+KINDS = (
+    ("K1 attention_qkv", ("attention_qkv_",)),
+    ("K2 layer_norm", ("_ln_fwd",)),
+    ("K3 temporal_block", ("temporal_block_kernel",)),
+    ("K4 attention_block", ("attention_block_kernel",)),
+    ("copy", ("Memcpy", "Memset", "copy_kernel")),
+    ("conv (cuDNN)", ("fprop", "conv", "cudnn")),
+    ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_kind(name: str) -> str:
+    for kind, keys in KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in their unit / 1e3
+    (the profiler's microseconds give milliseconds)."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+@contextlib.contextmanager
+def _patched(obj, name, new):
+    old = getattr(obj, name)
+    setattr(obj, name, new)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def layer_times(model, x, reps: int = 5) -> dict:
+    """Mean milliseconds a window ``forward`` spends in each layer."""
+    from vda_tpu_torch.models import dpt, vda
+
+    spans = []
+
+    def timed(fn, name_of):
+        def wrapped(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((name_of(), start, end))
+            return out
+        return wrapped
+
+    mm = itertools.count()  # motion modules run in order mm0..mm3
+    with contextlib.ExitStack() as stack:
+        for obj, name, label in (
+                (vda, "encode", lambda: "encoder"),
+                (vda, "dpt_head_temporal_apply", lambda: "head"),
+                (dpt, "_project_and_resize", lambda: "head.project_resize"),
+                (dpt, "temporal_module_apply",
+                 lambda: f"head.temporal_mm{next(mm) % 4}"),
+                (dpt, "_output_tail", lambda: "head.output_tail")):
+            stack.enter_context(_patched(obj, name,
+                                         timed(getattr(obj, name), label)))
+        forward = timed(vda.forward, lambda: "forward")
+        forward(model, x)  # warm-up
+        torch.cuda.synchronize()
+        spans.clear()
+        for _ in range(reps):
+            forward(model, x)
+        torch.cuda.synchronize()
+    ms = defaultdict(float)
+    for name, start, end in spans:
+        ms[name] += start.elapsed_time(end) / reps
+    ms["head.rest"] = ms["head"] - sum(
+        v for k, v in ms.items() if k.startswith("head."))
+    ms["forward.rest"] = ms["forward"] - ms["encoder"] - ms["head"]
+    return dict(ms)
+
+
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under torch.profiler: device time and launches by
+    kernel kind, the largest kernels, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device kernels")
+    by_kind, launches, by_name = (defaultdict(float), defaultdict(int),
+                                  defaultdict(float))
+    for e in kernels:
+        d = (e.time_range.end - e.time_range.start) / 1e3
+        by_kind[kernel_kind(e.name)] += d
+        launches[kernel_kind(e.name)] += 1
+        by_name[e.name[:90]] += d
+    busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms,
+                kernel_ms_by_kind=dict(sorted(by_kind.items(),
+                                              key=lambda kv: -kv[1])),
+                launches_by_kind=dict(launches), top_kernels_ms=dict(top))
+
+
+def main(argv=None) -> int:
+    import vda_tpu_torch as vt
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--frames", type=int, default=54)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    model = vt.init_random(vt.get_config("vitl"),
+                           torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda").requires_grad_(False)
+    frames = (np.random.default_rng(0).random((args.frames, 518, 518, 3))
+              * 255).astype(np.uint8)
+    x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
+                          (518, 518), dtype=torch.bfloat16)
+    print(json.dumps({"phase": "layers", "reps": args.reps,
+                      "ms": layer_times(model, x, args.reps)}), flush=True)
+    vt.forward(model, x)  # warm-up outside the profiler
+    print(json.dumps({"phase": "profile_window",
+                      **device_profile(lambda: vt.forward(model, x))}),
+          flush=True)
+    vt.infer_video_depth(model, frames[:32], 30.0)
+    print(json.dumps({"phase": "profile_end_to_end", "frames": args.frames,
+                      **device_profile(lambda: vt.infer_video_depth(
+                          model, frames, 30.0))}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
