@@ -2,15 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's four hand-written kernels from vda_tpu_torch/csrc and
-vda_tpu_torch/ops (nvcc for sm_90a, Triton JIT), checks each against its
-plain PyTorch twin at the vitl main-path shapes, drives the offline windowed
-main path (``infer_video_depth``) on a vitl model with seeded random weights
-over a 54-frame 518x518 video (three windows), counts the kernel launches of
-that run, and cross-checks one window's forward against the all-plain path.
+Builds the port's six hand-written kernels from vda_tpu_torch/csrc and
+vda_tpu_torch/ops (nvcc for sm_90a, one process a source, and the Triton
+JIT), checks each against its plain PyTorch twin at the shapes its main
+paths give it, with its time beside the least time the card could take and
+beside one PyTorch library call where one computes the same function, then
+drives each main path with every launch counter set to 0 just before it and
+read just after:
+
+  * ``main_path``: offline windowed ``infer_video_depth`` on a vitl model
+    with seeded random weights over a 54-frame 518x518 video (three
+    windows), then one window's forward against the all-plain path;
+  * ``stream``: vitl ``StreamingDepth.submit`` over 48 frames of 518x518
+    (past eviction onset at step 11 and ring-row reuse at step 45), without
+    and with ``ctx_kernel``, launch counts asserted step by step, the two
+    flavours held to each other and the first frames to an all-plain
+    stream;
+  * ``vits_window``: one 1x32x518x518 vits forward against the all-plain
+    path.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Without a CUDA device it fails at once and prints no result.  The last
-line is {"ok": true, "device": {...}}.
+lines are the kernels line, the card's nvidia-smi name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -30,7 +44,21 @@ sys.path.insert(0, HERE)
 
 N_FRAMES = 54  # three 32-frame windows: keyframe overlap and stitching run
 SIZE = 518
-PER_WINDOW = {"K1": 24, "K2": 54, "K3": 2, "K4": 4}  # vitl launches a window
+N_STREAM = 48  # STREAM_MAX_CACHE + 6 streaming steps
+ZERO = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+# vitl launches a window: K2 is two norms a block, four tap norms, and the
+# ff_norm of mm0/mm1 (K4 takes their attention sub-blocks, K3 whole blocks
+# of mm2/mm3)
+PER_WINDOW = {**ZERO, "K1": 24, "K2": 54, "K3": 2, "K4": 4}
+# vitl launches a streaming step: K2 is 48 block norms + 4 tap norms + 3
+# per motion module (two attention sub-blocks and the feed-forward, all at
+# widths % 128; the caches keep K3/K4 off); K5 takes all 8 attention
+# sub-blocks of the first step, K6 those of every later step with ctx_kernel
+PER_STEP = {**ZERO, "K1": 24, "K2": 64}
+# vits launches a window: K2 24 block norms + 4 tap norms (its temporal
+# widths 192 and 64 are not multiples of 128, mm1's norms are inside K3);
+# K5 the attention sub-blocks of mm0, mm2, mm3
+PER_VITS_WINDOW = {**ZERO, "K1": 12, "K2": 28, "K3": 1, "K5": 6}
 KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
     "K1": ("cuda", "vda_tpu_torch/csrc/attention_qkv.cu",
            "vda_tpu/ops/pallas_attention.py:361"),
@@ -40,15 +68,28 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
            "vda_tpu/ops/pallas_temporal.py:234"),
     "K4": ("cuda", "vda_tpu_torch/csrc/temporal_block.cu",
            "vda_tpu/ops/pallas_temporal.py:162"),
+    "K5": ("cuda", "vda_tpu_torch/csrc/tiny_seq_attention.cu",
+           "vda_tpu/ops/pallas_attention.py:517"),
+    "K6": ("cuda", "vda_tpu_torch/csrc/stream_kv_attention.cu",
+           "vda_tpu/ops/pallas_stream.py:119"),
 }
 # Tolerances, as max |kernel - reference| over max |reference|:
-# bf16 K1/K2 against the twin run in fp32 on the same (bf16) inputs: the
-# kernel's own output rounding is up to half a bf16 ulp, 2^-9..2^-8 of the
-# scale; K1's bound is the repo's bf16-softmax bound (docs/PARITY.md:107).
-# bf16 K3/K4 against the bf16 twin, which rounds at the same points: the
-# bound the JAX package holds its fused temporal kernels to
-# (tests/test_pallas_temporal.py).  fp32 cases: summation order only.
-TOL = {"K1": 3.9e-3, "K2": 3.9e-3, "K3": 2e-2, "K4": 2e-2, "fp32": 1e-4}
+# bf16 K1/K2/K5/K6 against the twin run in fp32 on the same (bf16) inputs:
+# the kernel's own output rounding is up to half a bf16 ulp, 2^-9..2^-8 of
+# the scale, and the softmax kernels round exp to bf16 as well; their bound
+# is the repo's bf16-softmax bound (docs/PARITY.md:107).  (K6's function
+# adds the encodings in the working dtype, so its fp32 run takes the rows
+# with the encodings added in bf16.)  bf16 K3/K4 against the bf16 twin,
+# which rounds at the same points: the bound the JAX package holds its fused
+# temporal kernels to (tests/test_pallas_temporal.py).  fp32 cases:
+# summation order only.
+TOL = {"K1": 3.9e-3, "K2": 3.9e-3, "K3": 2e-2, "K4": 2e-2, "K5": 3.9e-3,
+       "K6": 3.9e-3, "fp32": 1e-4}
+# The least time of a call: the larger of its bytes (each input read once,
+# each output written once) over the memory rate and its operations over
+# the peak rate for their type (NVIDIA H100 SXM data sheet, dense).
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def emit(**kw):
@@ -83,6 +124,24 @@ def rel(ref, got) -> tuple[float, float]:
     return err, err / max(float(ref.abs().max()), 1e-12)
 
 
+def bound(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
+    """(least ms of the call, "bytes" or "operations": which binds)."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = n_ops / PEAK_OPS_S[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def agreement(ref, got) -> tuple[float, float]:
+    """bench.py's test: (max_rel, share of pixels within a factor 1.25)."""
+    ref, got = ref.float().cpu().numpy(), got.float().cpu().numpy()
+    floor = max(1e-3, 1e-3 * float(np.abs(ref).max()))
+    a, b = np.maximum(ref, floor), np.maximum(got, floor)
+    agree = float((np.maximum(a / b, b / a) < 1.25).mean())
+    return (float(np.abs(ref - got).max() / max(float(np.abs(ref).max()),
+                                                1e-6)), agree)
+
+
 def phase_env():
     nvcc = subprocess.run(
         [shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", "--version"],
@@ -112,70 +171,156 @@ def phase_build():
 
 
 def phase_kernels(model):
-    """Each kernel against its plain twin at the vitl main-path shapes in
-    bf16, and at a small shape in fp32.  Returns per-kernel results."""
+    """Each kernel against its plain twin at the main-path shapes in bf16,
+    and at a small shape in fp32.  Returns per-kernel results: the first
+    bf16 case of each kernel gives its times and bound, every case its
+    error."""
+    import torch.nn.functional as F
+
     from vda_tpu_torch.ops import attention_kernel as k1
     from vda_tpu_torch.ops import norm_kernel as k2
+    from vda_tpu_torch.ops import stream_kernel as k6
     from vda_tpu_torch.ops import temporal_kernel as k34
+    from vda_tpu_torch.ops import tiny_seq_kernel as k5
 
     g = torch.Generator(device="cuda").manual_seed(1)
     bf = torch.bfloat16
     results = {}
 
-    def check(name, shape, kern, twin, twin_inputs_fp32, tol, reps=5):
+    def check(name, shape, kern, twin, twin_inputs_fp32, tol, reps=5,
+              cost=None, library=None):
+        """cost: (bytes, operations) of the call; library: one PyTorch call
+        computing the same function, timed as a yardstick only."""
         got = kern()
         ref = twin(fp32=twin_inputs_fp32)
         torch.cuda.synchronize()
         err, r = rel(ref, got)
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name}: non-finite kernel output")
-        ms = time_ms(kern, reps)
-        plain_ms = time_ms(lambda: twin(fp32=False), reps)
         res = dict(kernel=name, shape=list(shape), dtype=str(got.dtype),
-                   max_abs=err, max_rel=r, tol=tol, ms=ms, plain_ms=plain_ms)
+                   max_abs=err, max_rel=r, tol=tol, ms=time_ms(kern, reps),
+                   plain_ms=time_ms(lambda: twin(fp32=False), reps),
+                   library_ms=None if library is None
+                   else time_ms(library, reps))
+        if cost is not None:
+            res["bound_ms"], res["bound_by"] = bound(*cost, got.dtype)
         emit(phase="kernel_vs_plain", **res)
         if not r < tol:
             raise AssertionError(f"{name} {shape}: max_rel {r} >= {tol}")
+        if name in results:
+            results[name]["max_abs"] = max(results[name]["max_abs"], err)
+        else:
+            results[name] = res
         return res
 
     # K1: encoder attention, (B*T, N, 3*H*D) = (32, 1370, 3072), 16 heads
-    qkv = torch.randn(32, 1370, 3072, device="cuda", generator=g).to(bf)
-    results["K1"] = check(
-        "K1", qkv.shape, lambda: k1.flash_attention_qkv(qkv, 16, 0.125),
-        lambda fp32: k1.flash_attention_qkv_reference(
-            qkv.float() if fp32 else qkv, 16, 0.125), True, TOL["K1"])
-    del qkv
+    b, n, h, d = 32, 1370, 16, 64
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g).to(bf)
+    heads_view = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+    check("K1", qkv.shape, lambda: k1.flash_attention_qkv(qkv, h, d ** -0.5),
+          lambda fp32: k1.flash_attention_qkv_reference(
+              qkv.float() if fp32 else qkv, h, d ** -0.5), True, TOL["K1"],
+          cost=(4 * b * n * h * d * 2, 4 * b * h * n * n * d),
+          library=lambda: F.scaled_dot_product_attention(
+              *heads_view, scale=d ** -0.5))
+    del qkv, heads_view
     # K2: the encoder LayerNorm (eps 1e-6) and the mm0 ff_norm (eps 1e-5)
     for shape, eps in (((32, 1370, 1024), 1e-6), ((1369, 32, 1024), 1e-5)):
         x = (torch.randn(*shape, device="cuda", generator=g) * 2 + 0.5).to(bf)
         w = torch.randn(1024, device="cuda", generator=g)
-        b = torch.randn(1024, device="cuda", generator=g)
-        res = check("K2", shape,
-                    lambda: k2.fused_layer_norm(x, w, b, eps),
-                    lambda fp32: k2.layer_norm_reference(
-                        x.float() if fp32 else x, w, b, eps),
-                    True, TOL["K2"], reps=20)
-        results.setdefault("K2", res)
-        results["K2"]["max_abs"] = max(results["K2"]["max_abs"], res["max_abs"])
-    # K3: mm3, (5476, 32, 256); K4: mm0's attention sub-block, (1369, 32, 1024)
+        b_ = torch.randn(1024, device="cuda", generator=g)
+        rows = x.numel() // 1024
+        check("K2", shape, lambda: k2.fused_layer_norm(x, w, b_, eps),
+              lambda fp32: k2.layer_norm_reference(
+                  x.float() if fp32 else x, w, b_, eps), True, TOL["K2"],
+              reps=20, cost=(2 * x.numel() * 2 + 2 * 1024 * 4, 8 * x.numel()),
+              library=lambda: F.layer_norm(x, (1024,), w.to(bf), b_.to(bf),
+                                           eps))
+        del x
+    # K3: mm3, (5476, 32, 256); K4: mm0's attention sub-block, (1369, 32,
+    # 1024).  Operations a row: K3 40 C^2 of products + 8 T C of attention,
+    # K4 8 C^2 + 4 T C; bytes: h in and out and the bf16 weights
     mms = model.head.motion_modules
     blk3 = mms[3].temporal_transformer.transformer_blocks[0]
     blk0 = mms[0].temporal_transformer.transformer_blocks[0]
     pe3 = blk3.attention_blocks[0].pos_encoder.pe[0]
     pe0 = blk0.attention_blocks[0].pos_encoder.pe[0]
-    h3 = torch.randn(5476, 32, 256, device="cuda", generator=g).to(bf)
-    results["K3"] = check(
-        "K3", h3.shape, lambda: k34.temporal_block_fused(blk3, h3, pe3, 8),
-        lambda fp32: k34.temporal_block_reference(blk3, h3, pe3, 8), False,
-        TOL["K3"])
+    bd, t, c = 5476, 32, 256
+    h3 = torch.randn(bd, t, c, device="cuda", generator=g).to(bf)
+    check("K3", h3.shape, lambda: k34.temporal_block_fused(blk3, h3, pe3, 8),
+          lambda fp32: k34.temporal_block_reference(blk3, h3, pe3, 8), False,
+          TOL["K3"], cost=(2 * h3.numel() * 2 + 20 * c * c * 2,
+                           bd * t * (40 * c * c + 8 * t * c)))
     del h3
-    h0 = torch.randn(1369, 32, 1024, device="cuda", generator=g).to(bf)
+    bd, t, c = 1369, 32, 1024
+    h0 = torch.randn(bd, t, c, device="cuda", generator=g).to(bf)
     a0, n0 = blk0.attention_blocks[0], blk0.norms[0]
-    results["K4"] = check(
-        "K4", h0.shape, lambda: k34.attention_block_fused(a0, n0, h0, pe0, 8),
-        lambda fp32: k34.attention_block_reference(a0, n0, h0, pe0, 8), False,
-        TOL["K4"])
+    check("K4", h0.shape, lambda: k34.attention_block_fused(a0, n0, h0, pe0, 8),
+          lambda fp32: k34.attention_block_reference(a0, n0, h0, pe0, 8), False,
+          TOL["K4"], cost=(2 * h0.numel() * 2 + 4 * c * c * 2,
+                           bd * t * (8 * c * c + 4 * t * c)))
     del h0
+
+    # K5 at the shapes of the streaming first step (vitl, T = 1) and of the
+    # vits window (T = 32), 8 heads; q, k, v are column slices of one fused
+    # projection, as the model hands them over
+    def k5_case(bd, t, c, dtype, heads=8):
+        qkv = torch.randn(bd, t, 3 * c, device="cuda", generator=g).to(dtype)
+        q, k, v = qkv.split(c, dim=-1)
+        dh = c // heads
+        qh, kh, vh = (x.reshape(bd, t, heads, dh).transpose(1, 2)
+                      for x in (q, k, v))
+        check("K5", (bd, t, c),
+              lambda: k5.tiny_seq_attention(q, k, v, heads, dh ** -0.5),
+              lambda fp32: k5.tiny_seq_attention_reference(
+                  *((x.float() for x in (q, k, v)) if fp32 else (q, k, v)),
+                  heads, dh ** -0.5), True,
+              TOL["K5" if dtype == bf else "fp32"],
+              cost=(4 * bd * t * c * qkv.element_size(), 4 * bd * t * t * c),
+              library=lambda: F.scaled_dot_product_attention(
+                  qh, kh, vh, scale=dh ** -0.5))
+
+    for shape in ((5476, 32, 64), (1369, 32, 64), (1369, 32, 192),
+                  (1369, 1, 1024), (361, 1, 1024), (1369, 1, 256),
+                  (5476, 1, 256)):
+        k5_case(*shape, bf)
+    k5_case(37, 7, 256, torch.float32)  # ragged T, fp32
+
+    # K6 at the shapes of a streaming step with ctx_kernel (vitl, 31 rows);
+    # the fp32 case has rows that are not valid
+    def k6_case(bhw, rows, c, dtype, n_valid, heads=8):
+        def mk(*shape):
+            return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+        q, kn, vn = mk(bhw, c), mk(bhw, c), mk(bhw, c)
+        kb, vb, pk, pv = mk(bhw, rows, c), mk(bhw, rows, c), mk(rows, c), \
+            mk(rows, c)
+        valid = torch.zeros(rows, dtype=torch.bool, device="cuda")
+        valid[:n_valid] = True
+        zero = torch.zeros(rows, c, device="cuda")
+        scale = (c // heads) ** -0.5
+        es = q.element_size()
+
+        def twin(fp32):
+            if fp32:  # the encodings added in the working dtype
+                return k6.stream_kv_attention_reference(
+                    q.float(), kn.float(), vn.float(), (kb + pk).float(),
+                    (vb + pv).float(), zero, zero, valid, heads, scale)
+            return k6.stream_kv_attention_reference(
+                q, kn, vn, kb, vb, pk, pv, valid, heads, scale)
+
+        check("K6", (bhw, rows, c),
+              lambda: k6.stream_kv_attention(q, kn, vn, kb, vb, pk, pv, valid,
+                                             heads, scale),
+              twin, True, TOL["K6" if dtype == bf else "fp32"],
+              cost=((4 * bhw * c + 2 * bhw * n_valid * c + 2 * n_valid * c)
+                    * es + rows, bhw * (n_valid + 1) * c * 4
+                    + 2 * bhw * n_valid * c))
+
+    for shape in ((1369, 31, 1024), (361, 31, 1024), (1369, 31, 256),
+                  (5476, 31, 256)):
+        k6_case(*shape, bf, n_valid=31)
+    k6_case(37, 31, 256, torch.float32, n_valid=19)
+
     # fp32 at small shapes
     qkv = torch.randn(2, 200, 3 * 2 * 64, device="cuda", generator=g)
     check("K1", qkv.shape, lambda: k1.flash_attention_qkv(qkv, 2, 0.125,
@@ -184,9 +329,9 @@ def phase_kernels(model):
           True, TOL["fp32"])
     x = torch.randn(300, 256, device="cuda", generator=g)
     w = torch.randn(256, device="cuda", generator=g)
-    b = torch.randn(256, device="cuda", generator=g)
-    check("K2", x.shape, lambda: k2.fused_layer_norm(x, w, b, 1e-5),
-          lambda fp32: k2.layer_norm_reference(x, w, b, 1e-5), True,
+    b_ = torch.randn(256, device="cuda", generator=g)
+    check("K2", x.shape, lambda: k2.fused_layer_norm(x, w, b_, 1e-5),
+          lambda fp32: k2.layer_norm_reference(x, w, b_, 1e-5), True,
           TOL["fp32"])
     h = torch.randn(7, 32, 256, device="cuda", generator=g)
     check("K3", h.shape, lambda: k34.temporal_block_fused(blk3, h, pe3, 8),
@@ -247,11 +392,7 @@ def phase_cross_check(model, frames):
     plain_window_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
                               reps=2)
     got = vt.forward(model, x, attn_impl="plain").float().cpu().numpy()
-    floor = max(1e-3, 1e-3 * float(np.abs(ref).max()))
-    a, b = np.maximum(ref, floor), np.maximum(got, floor)
-    agree = float((np.maximum(a / b, b / a) < 1.25).mean())
-    max_rel = float(np.abs(ref - got).max() / max(float(np.abs(ref).max()),
-                                                  1e-6))
+    max_rel, agree = agreement(torch.from_numpy(ref), torch.from_numpy(got))
     emit(phase="cross_check", max_rel=max_rel, agree_125=agree,
          window_ms=window_ms, window_ms_per_frame=window_ms / 32,
          plain_window_ms=plain_window_ms,
@@ -259,6 +400,116 @@ def phase_cross_check(model, frames):
     if not (max_rel < 1e-2 and agree > 0.999):
         raise AssertionError(f"kernel vs plain forward: max_rel {max_rel}, "
                              f"agree_125 {agree}")
+
+
+def phase_stream(model, frames):
+    """vitl causal streaming, bf16, 48 frames of 518x518, through
+    ``StreamingDepth.submit``: one stream without and one with ctx_kernel,
+    stepped in turns; the launch counts of every step are read alone.
+    Returns the launches of the whole phase."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.infer.streaming import _BUF_ROWS
+
+    streams = {"kv": vt.StreamingDepth(model),
+               "ctx": vt.StreamingDepth(model, ctx_kernel=True)}
+    total = dict(ZERO)
+    step_ms = {name: [] for name in streams}
+    first = {name: [] for name in streams}
+    worst = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, f in enumerate(frames):
+        depth = {}
+        for name, stream in streams.items():
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            depth[name] = stream.submit(f)
+            torch.cuda.synchronize()
+            step_ms[name].append(1e3 * (time.perf_counter() - t0))
+            counts = ops.launch_counts()
+            want = {**PER_STEP, "K5": 8 if i == 0 else 0,
+                    "K6": 8 if i and name == "ctx" else 0}
+            if counts != want:
+                raise AssertionError(f"stream {name} step {i}: launches "
+                                     f"{counts} != {want}")
+            total = {k: total[k] + counts[k] for k in total}
+            d = depth[name]
+            if d.shape != (SIZE, SIZE) or not torch.isfinite(d).all():
+                raise AssertionError(f"stream {name} step {i}: depth "
+                                     f"{tuple(d.shape)} not finite")
+            if i < 4:
+                first[name].append(d.cpu())
+        r = rel(depth["kv"], depth["ctx"])[1]
+        worst = max(worst, r)
+        if not r < 2e-2:
+            raise AssertionError(f"step {i}: ctx_kernel vs kv max_rel {r}")
+        if streams["kv"].order != streams["ctx"].order:
+            raise AssertionError(f"step {i}: cache order differs")
+    peak = torch.cuda.max_memory_allocated()
+    # two attention sub-blocks x (k, v) x 45 rows x the four modules'
+    # positions and widths at 518x518 (37^2, 19^2, 37^2 and 74^2) x 2 bytes
+    want_cache = 4 * _BUF_ROWS * 2 * (37 * 37 * 1024 + 19 * 19 * 1024
+                                      + 37 * 37 * 256 + 74 * 74 * 256)
+    cache = streams["kv"].cache_bytes()
+    if cache != want_cache or streams["ctx"].cache_bytes() != want_cache:
+        raise AssertionError(f"cache bytes {cache} != {want_cache}")
+    # the first frames against an all-plain stream
+    plain = vt.StreamingDepth(model, attn_impl="plain")
+    vs_plain = []
+    for i, f in enumerate(frames[:4]):
+        ref = plain.submit(f).cpu()
+        for name in streams:
+            max_rel, agree = agreement(ref, first[name][i])
+            vs_plain.append(dict(step=i, stream=name, max_rel=max_rel,
+                                 agree_125=agree))
+            if not (max_rel < 1e-2 and agree > 0.999):
+                raise AssertionError(f"stream {name} step {i} vs plain: "
+                                     f"max_rel {max_rel}, agree {agree}")
+    steady = {name: float(np.median(ms[12:])) for name, ms in step_ms.items()}
+    emit(phase="stream", frames=len(frames), first_frame_ms={
+        name: ms[0] for name, ms in step_ms.items()},
+         steady_ms_per_frame=steady, steady_steps="12-47 (median)",
+         step_ms=step_ms, max_memory_allocated=peak,
+         cache_bytes_per_stream=cache, max_rel_ctx_vs_kv=worst,
+         vs_plain=vs_plain, launches=total)
+    return total
+
+
+def phase_vits_window(frames):
+    """One vits 1x32x518x518 bf16 forward with the kernels against the
+    all-plain forward; K5 carries three of its four motion modules.
+    Returns the launches of the forward."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    model = vt.init_random(vt.get_config("vits"),
+                           torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(False)
+    x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
+                          (SIZE, SIZE), dtype=torch.bfloat16)
+    vt.forward(model, x)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = vt.forward(model, x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts != PER_VITS_WINDOW:
+        raise AssertionError(f"vits launches {counts} != {PER_VITS_WINDOW}")
+    window_ms = time_ms(lambda: vt.forward(model, x), reps=3)
+    plain_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
+                       reps=2)
+    max_rel, agree = agreement(vt.forward(model, x, attn_impl="plain"), got)
+    emit(phase="vits_window", max_rel=max_rel, agree_125=agree,
+         window_ms=window_ms, window_ms_per_frame=window_ms / 32,
+         plain_window_ms=plain_ms, plain_window_ms_per_frame=plain_ms / 32,
+         launches=counts, depth_std=float(got.float().std()))
+    if not (max_rel < 1e-2 and agree > 0.999):
+        raise AssertionError(f"vits kernel vs plain forward: max_rel "
+                             f"{max_rel}, agree_125 {agree}")
+    return counts
 
 
 def main() -> int:
@@ -275,13 +526,23 @@ def main() -> int:
                            torch.Generator(device="cuda").manual_seed(0),
                            device="cuda").requires_grad_(False)
     results = phase_kernels(model)
-    counts, frames = phase_main_path(model)
+    window, frames = phase_main_path(model)
     phase_cross_check(model, frames)
+    stream = phase_stream(model, frames[:N_STREAM])
+    vits = phase_vits_window(frames)
+    launches = {k: window[k] + stream[k] + vits[k] for k in KERNELS}
+    idle = [k for k, n in launches.items() if not n]
+    if idle:
+        raise AssertionError(f"kernels never launched on a main path: {idle}")
     print(json.dumps({"kernels": [
         {"name": k, "route": KERNELS[k][0], "source": KERNELS[k][1],
-         "replaces": KERNELS[k][2], "launches": counts[k],
+         "replaces": KERNELS[k][2], "launches": launches[k],
          "max_abs_err": results[k]["max_abs"], "ms": results[k]["ms"],
-         "plain_ms": results[k]["plain_ms"]} for k in KERNELS]}), flush=True)
+         "plain_ms": results[k]["plain_ms"],
+         "bound_ms": results[k]["bound_ms"],
+         "bound_by": results[k]["bound_by"],
+         "library_ms": results[k]["library_ms"],
+         "shape": results[k]["shape"]} for k in KERNELS]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,10 @@ def test_resize_policy_equal(hw):
 
 def test_port_imports_no_jax():
     code = ("import sys; import vda_tpu_torch, vda_tpu_torch.ops, "
-            "vda_tpu_torch.infer.windowed, vda_tpu_torch.utils.convert; "
+            "vda_tpu_torch.infer.windowed, vda_tpu_torch.infer.streaming, "
+            "vda_tpu_torch.ops.tiny_seq_kernel, "
+            "vda_tpu_torch.ops.stream_kernel, vda_tpu_torch.utils.convert, "
+            "vda_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'vda_tpu.')) or m == 'vda_tpu']; print(bad); "
             "sys.exit(1 if bad else 0)")

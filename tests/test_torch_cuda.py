@@ -1,6 +1,6 @@
-"""The port's four kernels against their plain twins on the card, over the
-widths the model configs give them, and one small forward with and without
-the kernels.
+"""The port's six kernels against their plain twins on the card, over the
+widths the model configs give them, and one small forward and one small
+stream with and without the kernels.
 
 Needs an NVIDIA GPU with nvcc and Triton; elsewhere every test skips.  Run
 on the GPU host from the repo root, without the JAX test configuration:
@@ -11,7 +11,9 @@ Tolerances, as max |kernel - twin| over max |twin|: bf16 K1/K2 against the
 twin run in fp32 on the same bf16 inputs, 3.9e-3 (the repo's bf16-softmax
 bound, docs/PARITY.md); bf16 K3/K4 against the bf16 twin, which rounds at
 the same points, 2e-2 (the bound tests/test_pallas_temporal.py holds the
-fused temporal kernels to); fp32, summation order only, 1e-4.
+fused temporal kernels to); bf16 K5/K6 against the bf16 twin, which rounds
+at the same points, 3.9e-3 (a summation order that flips one rounding moves
+an output by at most one bf16 ulp); fp32, summation order only, 1e-4.
 """
 
 import pytest
@@ -22,7 +24,13 @@ import vda_tpu_torch.ops as tops
 from vda_tpu_torch.config import EncoderConfig, ModelConfig, get_config
 from vda_tpu_torch.models.temporal import (TemporalTransformerBlock,
                                            sinusoidal_pe)
-from vda_tpu_torch.ops import attention_kernel, norm_kernel, temporal_kernel
+from vda_tpu_torch.ops import (
+    attention_kernel,
+    norm_kernel,
+    stream_kernel,
+    temporal_kernel,
+    tiny_seq_kernel,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -165,24 +173,173 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         temporal_kernel.temporal_block_fused(blk, h.half(), pe, 8)
 
 
+# (C, heads): vits mm0/mm2 (192, 64), vitl mm0/mm2 (1024, 256), vitg
+# mm0 and its head (1536, 384), a 16-head C=128, one 1024-wide head
+K5_WIDTHS = [(192, 8), (64, 8), (1024, 8), (256, 8), (1536, 8), (384, 8),
+             (128, 16), (1024, 1)]
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("c,heads", K5_WIDTHS)
+@pytest.mark.parametrize("t", [1, 7, 32, 64])
+def test_k5_tiny_seq_attention(gen, t, c, heads, dtype, fused):
+    bd = 37 if c <= 256 else 5
+    if fused:  # column slices of one (BD, T, 3C) projection
+        q, k, v = torch.randn(bd, t, 3 * c, device="cuda",
+                              generator=gen).to(dtype).split(c, dim=-1)
+    else:
+        q, k, v = (torch.randn(bd, t, c, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(3))
+    scale = (c // heads) ** -0.5
+    assert tiny_seq_kernel.use_kernel(t, t, c // heads)
+    got = _launched("K5", lambda: tiny_seq_kernel.tiny_seq_attention(
+        q, k, v, heads, scale))
+    ref = tiny_seq_kernel.tiny_seq_attention_reference(q, k, v, heads, scale)
+    assert got.dtype == dtype and got.shape == (bd, t, c)
+    assert _rel(ref, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("bhw,rows,c,heads,n_valid", [
+    (1, 31, 1024, 8, 31), (37, 31, 256, 8, 31), (37, 31, 256, 8, 17),
+    (5, 31, 64, 8, 0), (19, 31, 192, 8, 30), (3, 31, 384, 6, 31),
+    (2, 31, 512, 1, 31), (7, 5, 1024, 8, 2), (1369, 31, 1024, 8, 31)])
+def test_k6_stream_kv_attention(gen, dtype, bhw, rows, c, heads, n_valid):
+    def mk(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    q, kn, vn = mk(bhw, c), mk(bhw, c), mk(bhw, c)
+    kb, vb = mk(bhw, rows, c), mk(bhw, rows, c)
+    pk, pv = mk(rows, c), mk(rows, c)
+    valid = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    valid[torch.randperm(rows, device="cuda", generator=gen)[:n_valid]] = 1
+    kb[:, ~valid] = float("nan")  # rows that are not valid are never read
+    scale = (c // heads) ** -0.5
+    assert stream_kernel.use_kernel(1, c, heads)
+    got = _launched("K6", lambda: stream_kernel.stream_kv_attention(
+        q, kn, vn, kb, vb, pk, pv, valid, heads, scale))
+    ref = stream_kernel.stream_kv_attention_reference(
+        q, kn, vn, kb, vb, pk, pv, valid, heads, scale)
+    assert got.dtype == dtype and got.shape == (bhw, c)
+    assert _rel(ref, got) < TOL[dtype]
+
+
+def test_k5_k6_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x = torch.randn(4, 8, 3 * 64, device="cuda", generator=gen).to(BF)
+    q, k, v = x.split(64, dim=-1)
+    with pytest.raises(ValueError):  # k and v laid out unlike q
+        tiny_seq_kernel.tiny_seq_attention(q, k.contiguous(), v, 8, 0.3)
+    with pytest.raises(ValueError):  # head width 4
+        tiny_seq_kernel.tiny_seq_attention(q, k, v, 16, 0.3)
+    with pytest.raises(ValueError):  # 65 frames
+        y = torch.zeros(2, 65, 64, device="cuda")
+        tiny_seq_kernel.tiny_seq_attention(y, y, y, 8, 0.3)
+    with pytest.raises(ValueError):  # fp16
+        tiny_seq_kernel.tiny_seq_attention(q.half(), k.half(), v.half(), 8,
+                                           0.3)
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        y = torch.zeros(4, 8, 65, device="cuda", dtype=BF)[..., 1:]
+        tiny_seq_kernel.tiny_seq_attention(y, y, y, 8, 0.3)
+    row = torch.zeros(3, 256, device="cuda", dtype=BF)
+    buf = torch.zeros(3, 31, 256, device="cuda", dtype=BF)
+    pe = torch.zeros(31, 256, device="cuda", dtype=BF)
+    ok = torch.ones(31, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):  # a strided context
+        stream_kernel.stream_kv_attention(row, row, row, buf.transpose(0, 1)
+                                          .contiguous().transpose(0, 1),
+                                          buf, pe, pe, ok, 8, 0.1)
+    with pytest.raises(ValueError):  # pe of the wrong length
+        stream_kernel.stream_kv_attention(row, row, row, buf, buf, pe[:30],
+                                          pe, ok, 8, 0.1)
+    with pytest.raises(ValueError):  # head width 4
+        stream_kernel.stream_kv_attention(row, row, row, buf, buf, pe, pe,
+                                          ok, 64, 0.1)
+    with pytest.raises(ValueError):  # fp16
+        stream_kernel.stream_kv_attention(
+            row.half(), row.half(), row.half(), buf.half(), buf.half(),
+            pe.half(), pe.half(), ok, 8, 0.1)
+    with pytest.raises(ValueError):  # more rows than shared memory holds
+        big = torch.zeros(1, 200, 512, device="cuda")
+        r1 = torch.zeros(1, 512, device="cuda")
+        stream_kernel.stream_kv_attention(
+            r1, r1, r1, big, big, big[0], big[0],
+            torch.ones(200, dtype=torch.bool, device="cuda"), 1, 0.1)
+
+
+def _small_model(gen, depth=2):
+    """Widths that pass every kernel gate: encoder heads of 64 (K1 at 530
+    tokens, 322x322 input), temporal modules at C=640 (K4; 8 heads of 80)
+    and C=128 (K3 offline; K6 in a stream)."""
+    cfg = ModelConfig("small", 128, (128, 128, 640, 640), (0, 0, 1, 1),
+                      EncoderConfig(embed_dim=128, depth=depth, num_heads=2,
+                                    img_size=322))
+    return vt.init_random(cfg, gen, device="cuda").requires_grad_(False)
+
+
 @pytest.mark.parametrize("dtype", [BF, F32])
 def test_forward_kernels_match_plain(gen, dtype):
     """A small model whose widths pass every kernel gate: each kernel runs
     its expected number of times, and the output matches attn_impl="plain"
     (bf16: bench.py's max_rel < 1e-2; fp32: 1e-4)."""
     depth = 2
-    cfg = ModelConfig("small", 128, (128, 128, 640, 640), (0, 0, 1, 1),
-                      EncoderConfig(embed_dim=128, depth=depth, num_heads=2,
-                                    img_size=56))
-    model = vt.init_random(cfg, gen, device="cuda").requires_grad_(False)
-    x = torch.randn(1, 8, 56, 70, 3, device="cuda", generator=gen).to(dtype)
+    model = _small_model(gen, depth)
+    x = torch.randn(1, 8, 322, 322, 3, device="cuda", generator=gen)
+    x = x.to(dtype)
     tops.reset_launch_counts()
     got = vt.forward(model, x)
     torch.cuda.synchronize()
     # K2: two block norms a layer, four tap norms, mm0/mm1's ff_norm
     assert tops.launch_counts() == {"K1": depth, "K2": 2 * depth + 4 + 2,
-                                    "K3": 2, "K4": 4}
+                                    "K3": 2, "K4": 4, "K5": 0, "K6": 0}
     ref = vt.forward(model, x, attn_impl="plain")
-    assert got.shape == ref.shape == (1, 8, 56, 70)
+    assert got.shape == ref.shape == (1, 8, 322, 322)
     assert float(ref.float().std()) > 0
     assert _rel(ref, got) < (1e-2 if dtype == BF else 1e-4)
+
+
+def test_streaming_kernels_match_plain(gen):
+    """12 bf16 frames through the small model: K5 in the first step's 8
+    attention sub-blocks, K6 in the 4 of the C=128 modules each later step
+    (C=640 is not a K6 width), and the depths within bench.py's bound of
+    the all-plain stream (kernel flavours of one stream: 2e-2, the bound of
+    tests/test_streaming_ctx_kernel.py)."""
+    depth = 2
+    model = _small_model(gen, depth)
+    frames = (torch.rand(12, 322, 322, 3, device="cuda", generator=gen)
+              * 255).to(torch.uint8)
+    plain = vt.StreamingDepth(model, input_size=322, attn_impl="plain")
+    kv = vt.StreamingDepth(model, input_size=322)
+    ctx = vt.StreamingDepth(model, input_size=322, ctx_kernel=True)
+    for i, f in enumerate(frames):
+        ref = plain.submit(f)
+        a = kv.submit(f)
+        tops.reset_launch_counts()
+        b = ctx.submit(f)
+        torch.cuda.synchronize()
+        n = tops.launch_counts()
+        assert n["K1"] == depth and n["K3"] == n["K4"] == 0
+        assert (n["K5"], n["K6"]) == ((8, 0) if i == 0 else (0, 4))
+        assert _rel(ref, a) < 1e-2 and _rel(ref, b) < 1e-2
+        assert _rel(a, b) < 2e-2
+        assert ctx.order == kv.order == plain.order
+
+
+def test_streaming_cache_kinds_agree(gen):
+    """The "h" cache and the int8 rows (through K6) on the card against the
+    bf16 kv stream, 12 bf16 frames: within 5e-2 of the depth scale, the
+    bound tests/test_streaming_kv.py holds JAX's kv-vs-h streams to (the
+    int8 test there allows a 5e-2 median); the int8 buffers hold int8."""
+    model = _small_model(gen)
+    frames = (torch.rand(12, 322, 322, 3, device="cuda", generator=gen)
+              * 255).to(torch.uint8)
+    kv = vt.StreamingDepth(model, input_size=322)
+    others = [vt.StreamingDepth(model, input_size=322, cache_kind="h"),
+              vt.StreamingDepth(model, input_size=322, cache_dtype="int8",
+                                ctx_kernel=True)]
+    for f in frames:
+        ref = kv.submit(f)
+        for s in others:
+            assert _rel(ref, s.submit(f)) < 5e-2
+            assert s.order == kv.order
+    assert all(b.dtype == torch.int8 for b in others[1].buffers)
+    assert others[1].cache_bytes() < kv.cache_bytes() // 2 + 4096

@@ -31,7 +31,8 @@ TOL = 2e-5
 def counters_at_rest():
     tops.reset_launch_counts()
     yield
-    assert tops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    assert tops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                    "K5": 0, "K6": 0}
 
 
 def _t(a):

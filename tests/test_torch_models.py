@@ -85,8 +85,10 @@ def test_temporal_module(models, mm, hw):
         need_caches=False)
     assert caches == []
     with torch.no_grad():
-        got = ttemporal.temporal_module_apply(model.head.motion_modules[mm],
-                                              torch.from_numpy(x), tcfg)
+        got, got_caches = ttemporal.temporal_module_apply(
+            model.head.motion_modules[mm], torch.from_numpy(x), tcfg,
+            need_caches=False)
+    assert got_caches == []
     assert rel_err(ref, got.numpy()) < TOL
     assert rel_err(x, ref) > 1e-2  # the module is not the identity
 
@@ -101,8 +103,11 @@ def test_dpt_head(models, jax_features):
     feats = [(torch.from_numpy(np.array(t)), torch.from_numpy(np.array(c)))
              for t, c in jax_features]
     with torch.no_grad():
-        got = tdpt.dpt_head_temporal_apply(model.head, feats, patch_hw, T,
-                                           tcfg, micro_batch_size=3)
+        got, caches = tdpt.dpt_head_temporal_apply(model.head, feats,
+                                                   patch_hw, T, tcfg,
+                                                   micro_batch_size=3,
+                                                   need_caches=False)
+    assert caches == []
     assert got.shape == ref.shape == (T, 56, 70, 1)
     assert rel_err(ref, got.numpy()) < TOL
 
@@ -125,3 +130,18 @@ def test_forward(models, frames, jax_depth, attn_impl):
 def test_forward_rejects_unknown_attn_impl(models, frames):
     with pytest.raises(ValueError):
         tvda.forward(models[2], torch.from_numpy(frames), attn_impl="pallas")
+
+
+def test_init_random_runs_on_the_card_unless_asked():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: ``init_random`` defaults to ``"cuda"``, and a CPU caller
+    passes ``"cpu"`` with a CPU generator."""
+    import inspect
+
+    import vda_tpu_torch as vt
+
+    assert inspect.signature(vt.init_random).parameters["device"].default \
+        == "cuda"
+    model = vt.init_random(vt.get_config("tiny"),
+                           torch.Generator().manual_seed(0), "cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}

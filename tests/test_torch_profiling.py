@@ -15,6 +15,10 @@ from vda_tpu_torch.utils import profiling
      "K3 temporal_block"),
     ("void vda::(anonymous namespace)::attention_block_kernel<float>(...)",
      "K4 attention_block"),
+    ("void vda::(anonymous namespace)::tiny_seq_kernel<__nv_bfloat16, 32>"
+     "(...)", "K5 tiny_seq"),
+    ("void vda::(anonymous namespace)::stream_kv_kernel<float>(...)",
+     "K6 stream_kv"),
     ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_"
      "impl_nocast<at::native::direct_copy_kernel_cuda(...)", "copy"),
     ("Memcpy HtoD (Pageable -> Device)", "copy"),

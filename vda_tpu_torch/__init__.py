@@ -1,14 +1,20 @@
 """vda_tpu_torch: the PyTorch and CUDA port of ``vda_tpu``.
 
-It runs offline windowed Video Depth Anything inference on an NVIDIA Hopper
-GPU.  Plain tensor code is PyTorch; the four TPU kernels of that path are
-hand-written Hopper kernels, each beside a plain PyTorch twin:
+It runs Video Depth Anything on an NVIDIA Hopper GPU: offline windowed
+inference (``infer_video_depth``) and causal streaming
+(``StreamingDepth``).  Plain tensor code is PyTorch; the six TPU kernels of
+those paths are hand-written Hopper kernels, each beside a plain PyTorch
+twin:
 
   * K1 ``ops/attention_kernel.py`` + ``csrc/attention_qkv.cu``: encoder
     attention read in place from the fused qkv projection
   * K2 ``ops/norm_kernel.py`` (Triton): one-pass LayerNorm
   * K3 / K4 ``ops/temporal_kernel.py`` + ``csrc/temporal_block.cu``: a whole
     temporal transformer block / one attention sub-block
+  * K5 ``ops/tiny_seq_kernel.py`` + ``csrc/tiny_seq_attention.cu``:
+    attention inside each short temporal sequence
+  * K6 ``ops/stream_kernel.py`` + ``csrc/stream_kv_attention.cu``: a new
+    frame's attention over the streaming cache
 
 The package never imports JAX or ``vda_tpu``; the JAX package is the
 reference its tests hold it to.
@@ -23,6 +29,7 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
 from vda_tpu_torch.config import MODEL_CONFIGS, ModelConfig, get_config  # noqa: E402,F401
+from vda_tpu_torch.infer.streaming import StreamingDepth  # noqa: E402,F401
 from vda_tpu_torch.infer.windowed import infer_video_depth  # noqa: E402,F401
 from vda_tpu_torch.models.vda import VideoDepthAnything, forward  # noqa: E402,F401
 from vda_tpu_torch.utils.convert import (  # noqa: E402,F401

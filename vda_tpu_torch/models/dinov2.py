@@ -6,8 +6,9 @@ offset, pre-norm blocks with LayerScale, and ``encode`` taps with the final
 norm.  Module names follow the reference state-dict keys.  Tokens are
 (B, N, D) and are not padded: the attention kernel takes N as it is.
 
-``kernels=True`` routes the attention through K1 and the LayerNorms through
-K2; on CPU tensors both wrappers run their plain twins.
+``kernels=True`` routes the attention through K1 where the JAX gate admits
+it (``attention_kernel.use_kernel``) and the LayerNorms through K2; on CPU
+tensors both wrappers run their plain twins.
 """
 
 from __future__ import annotations
@@ -130,7 +131,7 @@ def _attention(p: Attention, x, heads: int, kernels: bool):
     b, n, d = x.shape
     dh = d // heads
     qkv = linear(p.qkv, x)  # [q | k | v] along the last axis
-    if kernels and attention_kernel.kernel_supported(heads, dh):
+    if kernels and attention_kernel.use_kernel(n, dh):
         o = attention_kernel.flash_attention_qkv(qkv, heads, dh ** -0.5)
     else:
         o = attention_kernel.flash_attention_qkv_reference(qkv, heads,

@@ -1,16 +1,20 @@
-"""Temporal DPT head, PyTorch (offline path).
+"""Temporal DPT head, PyTorch.
 
-Counterpart of ``vda_tpu/models/dpt.py`` ``dpt_head_temporal_apply`` with
-``need_caches=False``: tap projections and resize layers, the four motion
-modules (on layer_3, layer_4, after refinenet4 and after refinenet3), the
-refinenet fusions, and the output tail whose conv2 stack is an fp32 island
-(reference dpt_temporal.py:105-108).  The TPU-only forms (the out_conv fold,
-the space-to-depth island, the lax.scan micro-batching) are not ported: the
-same values are computed directly and a Python loop over frame chunks takes
-the scan's place.  NHWC throughout; tokens arrive (B*T, N, D).
+Counterpart of ``vda_tpu/models/dpt.py``: tap projections and resize
+layers, the four motion modules (on layer_3, layer_4, after refinenet4 and
+after refinenet3) with their streaming caches, the refinenet fusions, and
+the output tail whose conv2 stack is an fp32 island (reference
+dpt_temporal.py:105-108).  The head splits as in JAX into the cache-coupled
+``dpt_head_temporal_stage`` and the per-frame ``dpt_head_temporal_tail``.
+The TPU-only forms (the out_conv fold, the space-to-depth island, the
+lax.scan micro-batching) are not ported: the same values are computed
+directly and a Python loop over frame chunks takes the scan's place.  NHWC
+throughout; tokens arrive (B*T, N, D).
 """
 
 from __future__ import annotations
+
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -125,33 +129,75 @@ def _output_tail(head: DPTHeadTemporal, path_3, layer_2_rn, layer_1_rn,
     return y.permute(0, 2, 3, 1).to(dtype)
 
 
-def dpt_head_temporal_apply(head: DPTHeadTemporal, features, patch_hw,
+def dpt_head_temporal_stage(head: DPTHeadTemporal, features, patch_hw,
                             frame_length: int, cfg: ModelConfig,
-                            micro_batch_size: int = 4, kernels: bool = True):
-    """features: four (tokens (B*T, N, D), cls) taps.  Returns depth
-    (B*T, 14*ph, 14*pw, 1)."""
-    ph, pw = patch_hw
+                            cached_hidden_state_list: Optional[List] = None,
+                            cache_kind: str = "h", need_caches: bool = True,
+                            kernels: bool = True):
+    """The cache-coupled front of the head (reference dpt_temporal.py:53-123
+    up to refinenet3): tap projections, the four motion modules, the rn
+    convs and refinenets 4/3.  ``cached_hidden_state_list`` holds each
+    module's contexts in order (two a module); ``cache_kind="kv"`` asks for
+    (k, v) cache rows.  Returns ((path_3, l2, l1), new cache rows)."""
     sc = head.scratch
     mms = head.motion_modules
+    n_cache = 0
+    if cached_hidden_state_list is not None:
+        n_cache = len(cached_hidden_state_list) // len(mms)
 
     def temporal(i, x):
         bt, hh, ww, c = x.shape
         xt = x.reshape(bt // frame_length, frame_length, hh, ww, c)
-        return temporal_module_apply(mms[i], xt, cfg, kernels).reshape(x.shape)
+        cache = None
+        if n_cache:
+            cache = cached_hidden_state_list[i * n_cache:(i + 1) * n_cache]
+        y, rows = temporal_module_apply(mms[i], xt, cfg, cache,
+                                        want_kv=cache_kind == "kv",
+                                        need_caches=need_caches,
+                                        kernels=kernels)
+        return y.reshape(x.shape), rows
 
     layer_1, layer_2, layer_3, layer_4 = _project_and_resize(head, features,
                                                              patch_hw)
-    layer_3 = temporal(0, layer_3)
-    layer_4 = temporal(1, layer_4)
+    layer_3, h0 = temporal(0, layer_3)
+    layer_4, h1 = temporal(1, layer_4)
     l1 = conv2d(sc.layer1_rn, layer_1, padding=1)
     l2 = conv2d(sc.layer2_rn, layer_2, padding=1)
     l3 = conv2d(sc.layer3_rn, layer_3, padding=1)
     l4 = conv2d(sc.layer4_rn, layer_4, padding=1)
-    path_4 = temporal(2, _fusion(sc.refinenet4, l4, size=tuple(l3.shape[1:3])))
-    path_3 = temporal(3, _fusion(sc.refinenet3, path_4, l3,
-                                 size=tuple(l2.shape[1:3])))
+    path_4, h2 = temporal(2, _fusion(sc.refinenet4, l4,
+                                     size=tuple(l3.shape[1:3])))
+    path_3, h3 = temporal(3, _fusion(sc.refinenet3, path_4, l3,
+                                     size=tuple(l2.shape[1:3])))
+    return (path_3, l2, l1), h0 + h1 + h2 + h3
+
+
+def dpt_head_temporal_tail(head: DPTHeadTemporal, stage_out, patch_hw,
+                           micro_batch_size: int = 4):
+    """The per-frame back of the head (reference dpt_temporal.py:96-123):
+    refinenets 2/1 and the output convs, ``micro_batch_size`` frames at a
+    time.  Returns depth (B*T, 14*ph, 14*pw, 1)."""
+    path_3, l2, l1 = stage_out
+    ph, pw = patch_hw
     out_hw = (ph * 14, pw * 14)
     mb = micro_batch_size
     return torch.cat([_output_tail(head, path_3[i:i + mb], l2[i:i + mb],
                                    l1[i:i + mb], out_hw)
                       for i in range(0, l1.shape[0], mb)])
+
+
+def dpt_head_temporal_apply(head: DPTHeadTemporal, features, patch_hw,
+                            frame_length: int, cfg: ModelConfig,
+                            cached_hidden_state_list: Optional[List] = None,
+                            micro_batch_size: int = 4, cache_kind: str = "h",
+                            need_caches: bool = True, kernels: bool = True):
+    """features: four (tokens (B*T, N, D), cls) taps, T == frame_length new
+    frames.  Returns (depth (B*T, 14*ph, 14*pw, 1), new cache rows, two a
+    motion module).  ``need_caches=False`` (offline windows) lets K3/K4
+    take the blocks they admit, which return no cache rows."""
+    stage_out, caches = dpt_head_temporal_stage(
+        head, features, patch_hw, frame_length, cfg,
+        cached_hidden_state_list=cached_hidden_state_list,
+        cache_kind=cache_kind, need_caches=need_caches, kernels=kernels)
+    return dpt_head_temporal_tail(head, stage_out, patch_hw,
+                                  micro_batch_size), caches

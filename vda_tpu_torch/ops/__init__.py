@@ -1,13 +1,20 @@
-"""Ops of the port and the launch counters of its four kernels."""
+"""Ops of the port and the launch counters of its six kernels."""
 
-from vda_tpu_torch.ops import attention_kernel, norm_kernel, temporal_kernel
+from vda_tpu_torch.ops import (
+    attention_kernel,
+    norm_kernel,
+    stream_kernel,
+    temporal_kernel,
+    tiny_seq_kernel,
+)
 
 
 def launch_counts() -> dict:
     """Kernel launches made so far in this process, by kernel."""
     return {"K1": attention_kernel.launches, "K2": norm_kernel.launches,
             "K3": temporal_kernel.launches_block,
-            "K4": temporal_kernel.launches_attn}
+            "K4": temporal_kernel.launches_attn,
+            "K5": tiny_seq_kernel.launches, "K6": stream_kernel.launches}
 
 
 def reset_launch_counts() -> None:
@@ -15,3 +22,5 @@ def reset_launch_counts() -> None:
     norm_kernel.launches = 0
     temporal_kernel.launches_block = 0
     temporal_kernel.launches_attn = 0
+    tiny_seq_kernel.launches = 0
+    stream_kernel.launches = 0

@@ -1,8 +1,9 @@
 """Build the CUDA kernels in ``vda_tpu_torch/csrc`` and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface.  Nothing here includes PyTorch's
-headers, so a build takes seconds.  The library is built at first use into
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into one shared
+library with a plain C interface.  Nothing here includes PyTorch's headers,
+so a build takes seconds.  The library is built at first use into
 ``csrc/build/`` (listed in ``.gitignore``), named after a hash of the sources
 and flags, so an edited source never loads a stale build.
 
@@ -27,12 +28,13 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
+_I64 = ctypes.c_longlong
 # C signatures of the entry points (csrc/*.cu, ``extern "C"``)
 _SIGNATURES = {
     # qkv, out, B, N, H, D, valid_len, scale, is_bf16, stream
@@ -46,9 +48,17 @@ _SIGNATURES = {
     # wproj, bproj, wffo, bffo, ws, ws_bytes, BD, T, C, heads, is_bf16,
     # stream
     "vda_temporal_block": [_P] * 24 + [_U64] + [_I] * 5 + [_P],
+    # q, k, v, out, BD, T, C, heads, seq_stride, row_stride, scale, is_bf16,
+    # stream
+    "vda_tiny_seq_attention": [_P] * 4 + [_I] * 4 + [_I64] * 2
+    + [_F, _I, _P],
+    # q, k_new, v_new, k_buf, v_buf, pe_k, pe_v, valid, out, BHW, rows, C,
+    # heads, scale, is_bf16, stream
+    "vda_stream_kv_attention": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
 }
 
 build_seconds = None  # wall time of the nvcc run in this process, if any
+INVALID_VALUE = 1  # cudaErrorInvalidValue: an entry point refused its shape
 
 
 def _nvcc() -> str:
@@ -78,13 +88,28 @@ def library() -> ctypes.CDLL:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         cus = [s for s in _sources() if s.endswith(".cu")]
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
         t0 = time.perf_counter()
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                           capture_output=True, text=True)
+        jobs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(cus, objs)]
+        logs = [(s, *j.communicate(), j.returncode)
+                for s, j in zip(cus, jobs)]
+        log = "".join(f"== {os.path.basename(s)}\n{out}" for s, out, _, _
+                      in logs)
+        bad = [os.path.basename(s) for s, _, _, rc in logs if rc]
+        if not bad:
+            r = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                               capture_output=True, text=True)
+            log += r.stdout + r.stderr
+            bad = ["link"] if r.returncode else []
         build_seconds = time.perf_counter() - t0
-        log = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        if bad:
+            raise RuntimeError(f"nvcc failed ({', '.join(bad)}):\n{log}")
         with open(f"{so}.ptxas.log", "w") as f:
             f.write(log)
         os.replace(tmp, so)

@@ -36,6 +36,13 @@ def kernel_supported(heads: int, dh: int) -> bool:
     return dh % 8 == 0 and 0 < dh <= 128
 
 
+def use_kernel(n: int, dh: int) -> bool:
+    """The model's dispatch: the JAX gate (``vda_tpu/models/dinov2.py``
+    ``_use_pallas``: at least 512 tokens, head width a multiple of 8) and
+    the kernel's own head-width limit."""
+    return n >= 512 and dh % 8 == 0 and dh <= 128
+
+
 def flash_attention_qkv_reference(qkv, heads: int, scale: float,
                                   valid_len: int | None = None):
     """Plain twin: fp32-statistics softmax(Q K^T · scale) V over the fused

@@ -39,9 +39,10 @@ def load_state_dict_numpy(model: VideoDepthAnything,
 
 @torch.no_grad()
 def init_random(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> VideoDepthAnything:
-    """A model with seeded random weights (fp32, on ``device``).  The
-    generator must live on ``device`` (a CPU generator for CPU)."""
+                device="cuda") -> VideoDepthAnything:
+    """A model with seeded random weights (fp32, on ``device``: the card
+    unless the caller asks for ``"cpu"``).  The generator must live on
+    ``device`` (a CPU generator for CPU)."""
     model = VideoDepthAnything(cfg, device=device)
 
     def uniform_(t, fan_in):

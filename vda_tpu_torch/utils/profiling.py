@@ -1,6 +1,7 @@
 """Where the device time of the vitl main path goes, on one CUDA device.
 
     python -m vda_tpu_torch.utils.profiling [--reps 5] [--frames 54]
+    python -m vda_tpu_torch.utils.profiling --stream [--frames 48]
 
 Counterpart of ``vda_tpu/utils/profiling.py`` for the port.  Builds vitl
 from ``init_random`` (seed 0), prints the card's ``nvidia-smi`` name and
@@ -16,6 +17,16 @@ power limit, then three JSON lines:
   device's idle share (1 - union of kernel intervals / host wall time);
 - ``profile_end_to_end``: the same for ``infer_video_depth`` on a
   ``frames``-frame 518x518 video.
+
+With ``--stream`` it measures causal streaming instead (bf16, 518x518
+frames), once without and once with ``ctx_kernel``:
+
+- ``stream_layers``: milliseconds of each layer of a steady step (the mean
+  over the steps after the twelfth, past eviction onset), by CUDA events:
+  the encoder, the tap projections, each motion module, the output tail,
+  the cache write, and by difference the rest of the head and the rest of
+  the step (preprocessing, context gather, final resize);
+- ``profile_stream``: those steady steps under ``torch.profiler``.
 
 The layer spans wrap module-level functions for the duration of the call
 and are removed after it; nothing is timed unless this tool runs.
@@ -40,6 +51,8 @@ KINDS = (
     ("K2 layer_norm", ("_ln_fwd",)),
     ("K3 temporal_block", ("temporal_block_kernel",)),
     ("K4 attention_block", ("attention_block_kernel",)),
+    ("K5 tiny_seq", ("tiny_seq_kernel",)),
+    ("K6 stream_kv", ("stream_kv_kernel",)),
     ("copy", ("Memcpy", "Memset", "copy_kernel")),
     ("conv (cuDNN)", ("fprop", "conv", "cudnn")),
     ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass")),
@@ -76,47 +89,90 @@ def _patched(obj, name, new):
         setattr(obj, name, old)
 
 
-def layer_times(model, x, reps: int = 5) -> dict:
-    """Mean milliseconds a window ``forward`` spends in each layer."""
-    from vda_tpu_torch.models import dpt, vda
+def _timed(spans, fn, name_of):
+    """``fn`` recording a CUDA-event span (name, start, end) per call."""
+    def wrapped(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((name_of(), start, end))
+        return out
+    return wrapped
 
-    spans = []
 
-    def timed(fn, name_of):
-        def wrapped(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            spans.append((name_of(), start, end))
-            return out
-        return wrapped
+def _head_spans(stack, spans):
+    """Time the head's layers (``models/dpt.py``) while ``stack`` is open."""
+    from vda_tpu_torch.models import dpt
 
     mm = itertools.count()  # motion modules run in order mm0..mm3
+    for name, label in (
+            ("_project_and_resize", lambda: "head.project_resize"),
+            ("temporal_module_apply",
+             lambda: f"head.temporal_mm{next(mm) % 4}"),
+            ("_output_tail", lambda: "head.output_tail")):
+        stack.enter_context(_patched(dpt, name, _timed(
+            spans, getattr(dpt, name), label)))
+
+
+def _mean_ms(spans, n: int) -> dict:
+    ms = defaultdict(float)
+    for name, start, end in spans:
+        ms[name] += start.elapsed_time(end) / n
+    ms["head.rest"] = ms["head"] - sum(
+        v for k, v in ms.items() if k.startswith("head."))
+    return ms
+
+
+def layer_times(model, x, reps: int = 5) -> dict:
+    """Mean milliseconds a window ``forward`` spends in each layer."""
+    from vda_tpu_torch.models import vda
+
+    spans = []
     with contextlib.ExitStack() as stack:
-        for obj, name, label in (
-                (vda, "encode", lambda: "encoder"),
-                (vda, "dpt_head_temporal_apply", lambda: "head"),
-                (dpt, "_project_and_resize", lambda: "head.project_resize"),
-                (dpt, "temporal_module_apply",
-                 lambda: f"head.temporal_mm{next(mm) % 4}"),
-                (dpt, "_output_tail", lambda: "head.output_tail")):
-            stack.enter_context(_patched(obj, name,
-                                         timed(getattr(obj, name), label)))
-        forward = timed(vda.forward, lambda: "forward")
+        for name, label in (("encode", "encoder"),
+                            ("dpt_head_temporal_apply", "head")):
+            stack.enter_context(_patched(vda, name, _timed(
+                spans, getattr(vda, name), lambda label=label: label)))
+        _head_spans(stack, spans)
+        forward = _timed(spans, vda.forward, lambda: "forward")
         forward(model, x)  # warm-up
         torch.cuda.synchronize()
         spans.clear()
         for _ in range(reps):
             forward(model, x)
         torch.cuda.synchronize()
-    ms = defaultdict(float)
-    for name, start, end in spans:
-        ms[name] += start.elapsed_time(end) / reps
-    ms["head.rest"] = ms["head"] - sum(
-        v for k, v in ms.items() if k.startswith("head."))
+    ms = _mean_ms(spans, reps)
     ms["forward.rest"] = ms["forward"] - ms["encoder"] - ms["head"]
+    return dict(ms)
+
+
+def stream_layer_times(model, frames, ctx_kernel: bool,
+                       warm: int = 12) -> dict:
+    """Mean milliseconds a steady ``StreamingDepth`` step (steps ``warm``
+    and later) spends in each layer."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch.infer import streaming
+
+    spans = []
+    with contextlib.ExitStack() as stack:
+        for name, label in (("forward_features", "encoder"),
+                            ("forward_depth", "head"),
+                            ("_stream_step", "step"),
+                            ("_write_step", "cache_write")):
+            stack.enter_context(_patched(streaming, name, _timed(
+                spans, getattr(streaming, name), lambda label=label: label)))
+        _head_spans(stack, spans)
+        stream = vt.StreamingDepth(model, ctx_kernel=ctx_kernel)
+        for i, f in enumerate(frames):
+            if i == warm:
+                torch.cuda.synchronize()
+                spans.clear()
+            stream.submit(f)
+        torch.cuda.synchronize()
+    ms = _mean_ms(spans, len(frames) - warm)
+    ms["step.rest"] = ms["step"] - ms["encoder"] - ms["head"]
     return dict(ms)
 
 
@@ -158,8 +214,12 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--frames", type=int, default=54)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="video length (default 54; 48 with --stream)")
+    ap.add_argument("--stream", action="store_true",
+                    help="measure causal streaming instead of windows")
     args = ap.parse_args(argv)
+    n_frames = args.frames or (48 if args.stream else 54)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -168,8 +228,26 @@ def main(argv=None) -> int:
     model = vt.init_random(vt.get_config("vitl"),
                            torch.Generator(device="cuda").manual_seed(0),
                            device="cuda").requires_grad_(False)
-    frames = (np.random.default_rng(0).random((args.frames, 518, 518, 3))
+    frames = (np.random.default_rng(0).random((n_frames, 518, 518, 3))
               * 255).astype(np.uint8)
+    if args.stream:
+        for ctx_kernel in (False, True):
+            print(json.dumps({"phase": "stream_layers",
+                              "ctx_kernel": ctx_kernel,
+                              "steps": n_frames - 12,
+                              "ms": stream_layer_times(model, frames,
+                                                       ctx_kernel)}),
+                  flush=True)
+            stream = vt.StreamingDepth(model, ctx_kernel=ctx_kernel)
+            for f in frames[:12]:
+                stream.submit(f)
+            print(json.dumps({"phase": "profile_stream",
+                              "ctx_kernel": ctx_kernel,
+                              "steps": n_frames - 12,
+                              **device_profile(lambda: [
+                                  stream.submit(f) for f in frames[12:]])}),
+                  flush=True)
+        return 0
     x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
                           (518, 518), dtype=torch.bfloat16)
     print(json.dumps({"phase": "layers", "reps": args.reps,
@@ -179,7 +257,7 @@ def main(argv=None) -> int:
                       **device_profile(lambda: vt.forward(model, x))}),
           flush=True)
     vt.infer_video_depth(model, frames[:32], 30.0)
-    print(json.dumps({"phase": "profile_end_to_end", "frames": args.frames,
+    print(json.dumps({"phase": "profile_end_to_end", "frames": n_frames,
                       **device_profile(lambda: vt.infer_video_depth(
                           model, frames, 30.0))}), flush=True)
     return 0
