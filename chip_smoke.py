@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's six hand-written kernels from vda_tpu_torch/csrc and
+Builds the port's nine hand-written kernels from vda_tpu_torch/csrc and
 vda_tpu_torch/ops (nvcc for sm_90a, one process a source, and the Triton
 JIT), checks each against its plain PyTorch twin at the shapes its main
 paths give it, with its time beside the least time the card could take and
@@ -19,7 +19,15 @@ read just after:
     flavours held to each other and the first frames to an all-plain
     stream;
   * ``vits_window``: one 1x32x518x518 vits forward against the all-plain
-    path.
+    path;
+  * ``fused_window``: the same vitl video through ``infer_video_depth(
+    fuse_proj=True, resize_kernel=True)`` (K7 and K10), then one window
+    against the default-kernel and the all-plain forwards;
+  * ``fused_stream``: 8 vitl ``StreamingDepth(fuse_proj=True)`` steps
+    against the default stream, counts asserted step by step;
+  * ``cross_attention``: ``models.cross_attention`` at vitl encoder widths,
+    self-attention through K9 against ``impl="plain"``, and a cross call
+    (M != N) that K9's gate refuses.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Without a CUDA device it fails at once and prints no result.  The last
@@ -45,7 +53,8 @@ sys.path.insert(0, HERE)
 N_FRAMES = 54  # three 32-frame windows: keyframe overlap and stitching run
 SIZE = 518
 N_STREAM = 48  # STREAM_MAX_CACHE + 6 streaming steps
-ZERO = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+ZERO = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
+        "K9": 0, "K10": 0}
 # vitl launches a window: K2 is two norms a block, four tap norms, and the
 # ff_norm of mm0/mm1 (K4 takes their attention sub-blocks, K3 whole blocks
 # of mm2/mm3)
@@ -59,6 +68,10 @@ PER_STEP = {**ZERO, "K1": 24, "K2": 64}
 # widths 192 and 64 are not multiples of 128, mm1's norms are inside K3);
 # K5 the attention sub-blocks of mm0, mm2, mm3
 PER_VITS_WINDOW = {**ZERO, "K1": 12, "K2": 28, "K3": 1, "K5": 6}
+# with fuse_proj and resize_kernel: K7 takes every block's attention half
+# (both norms stay K2), K10 the two upsamples of each 16-frame tail chunk
+PER_FUSED_WINDOW = {**PER_WINDOW, "K1": 0, "K7": 24, "K10": 4}
+N_FUSED_STREAM = 8
 KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
     "K1": ("cuda", "vda_tpu_torch/csrc/attention_qkv.cu",
            "vda_tpu/ops/pallas_attention.py:361"),
@@ -72,6 +85,12 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
            "vda_tpu/ops/pallas_attention.py:517"),
     "K6": ("cuda", "vda_tpu_torch/csrc/stream_kv_attention.cu",
            "vda_tpu/ops/pallas_stream.py:119"),
+    "K7": ("cuda", "vda_tpu_torch/csrc/attention_proj.cu",
+           "vda_tpu/ops/pallas_attention.py:274"),
+    "K9": ("cuda", "vda_tpu_torch/csrc/attention_qkv.cu",
+           "vda_tpu/ops/pallas_attention.py:112"),
+    "K10": ("cuda", "vda_tpu_torch/csrc/resize_bilinear.cu",
+            "vda_tpu/ops/pallas_resize.py:134"),
 }
 # Tolerances, as max |kernel - reference| over max |reference|:
 # bf16 K1/K2/K5/K6 against the twin run in fp32 on the same (bf16) inputs:
@@ -81,10 +100,12 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
 # adds the encodings in the working dtype, so its fp32 run takes the rows
 # with the encodings added in bf16.)  bf16 K3/K4 against the bf16 twin,
 # which rounds at the same points: the bound the JAX package holds its fused
-# temporal kernels to (tests/test_pallas_temporal.py).  fp32 cases:
-# summation order only.
+# temporal kernels to (tests/test_pallas_temporal.py).  bf16 K9 as K1.
+# bf16 K7 against the bf16 twin: the bound the JAX package holds its fused
+# kernel to (tests/test_attn_fuse_proj.py).  K10 is bit-exact with its twin
+# (two exact products, one rounding).  fp32 cases: summation order only.
 TOL = {"K1": 3.9e-3, "K2": 3.9e-3, "K3": 2e-2, "K4": 2e-2, "K5": 3.9e-3,
-       "K6": 3.9e-3, "fp32": 1e-4}
+       "K6": 3.9e-3, "K7": 2e-2, "K9": 3.9e-3, "K10": 1e-12, "fp32": 1e-4}
 # The least time of a call: the larger of its bytes (each input read once,
 # each output written once) over the memory rate and its operations over
 # the peak rate for their type (NVIDIA H100 SXM data sheet, dense).
@@ -178,7 +199,9 @@ def phase_kernels(model):
     import torch.nn.functional as F
 
     from vda_tpu_torch.ops import attention_kernel as k1
+    from vda_tpu_torch.ops import attn_proj_kernel as k7
     from vda_tpu_torch.ops import norm_kernel as k2
+    from vda_tpu_torch.ops import resize_kernel as k10
     from vda_tpu_torch.ops import stream_kernel as k6
     from vda_tpu_torch.ops import temporal_kernel as k34
     from vda_tpu_torch.ops import tiny_seq_kernel as k5
@@ -188,9 +211,11 @@ def phase_kernels(model):
     results = {}
 
     def check(name, shape, kern, twin, twin_inputs_fp32, tol, reps=5,
-              cost=None, library=None):
-        """cost: (bytes, operations) of the call; library: one PyTorch call
-        computing the same function, timed as a yardstick only."""
+              cost=None, library=None, ops_dtype=None, **timed):
+        """cost: (bytes, operations) of the call, the operations at the peak
+        rate of ``ops_dtype`` (default: the output's); library: one PyTorch
+        call computing the same function, timed as a yardstick only; timed:
+        other calls to time beside it, by name."""
         got = kern()
         ref = twin(fp32=twin_inputs_fp32)
         torch.cuda.synchronize()
@@ -201,9 +226,11 @@ def phase_kernels(model):
                    max_abs=err, max_rel=r, tol=tol, ms=time_ms(kern, reps),
                    plain_ms=time_ms(lambda: twin(fp32=False), reps),
                    library_ms=None if library is None
-                   else time_ms(library, reps))
+                   else time_ms(library, reps),
+                   **{f"{k}_ms": time_ms(f, reps) for k, f in timed.items()})
         if cost is not None:
-            res["bound_ms"], res["bound_by"] = bound(*cost, got.dtype)
+            res["bound_ms"], res["bound_by"] = bound(*cost,
+                                                     ops_dtype or got.dtype)
         emit(phase="kernel_vs_plain", **res)
         if not r < tol:
             raise AssertionError(f"{name} {shape}: max_rel {r} >= {tol}")
@@ -321,6 +348,64 @@ def phase_kernels(model):
         k6_case(*shape, bf, n_valid=31)
     k6_case(37, 31, 256, torch.float32, n_valid=19)
 
+    # K7: vitl's fused attention half, qkv (32, 1370, 3072), W (1024, 1024);
+    # against the bf16 twin; the split path it replaces (K1, the projection,
+    # LayerScale and residual as block_apply runs them) timed beside it
+    def k7_case(b, n, heads, d, dtype, valid=None):
+        c = heads * d
+
+        def mk(*shape, s=1.0):
+            return torch.randn(*shape, device="cuda", generator=g) * s
+        qkv = mk(b, n, 3 * c, s=2.0).to(dtype)
+        w = mk(c, c, s=c ** -0.5).to(dtype)
+        gb = torch.stack([1 + 0.5 * mk(c), mk(c, s=0.1)])
+        x = mk(b, n, c, s=0.1).to(dtype)
+        gamma, bias = gb[0].to(dtype), gb[1].to(dtype)
+        scale = d ** -0.5
+        es = qkv.element_size()
+        check("K7", (b, n, 3 * c),
+              lambda: k7.flash_attention_qkv_proj(qkv, w, gb, x, heads, scale,
+                                                  valid),
+              lambda fp32: k7.flash_attention_qkv_proj_reference(
+                  qkv, w, gb, x, heads, scale, valid), False,
+              TOL["K7" if dtype == bf else "fp32"],
+              cost=((5 * b * n * c + c * c) * es + 2 * c * 4,
+                    4 * b * n * n * c + 2 * b * n * c * c),
+              split=lambda: x + F.linear(k1.flash_attention_qkv(
+                  qkv, heads, scale, valid), w, bias) * gamma)
+
+    k7_case(32, 1370, 16, 64, bf)
+    # K9: the generic attention entry at vitl encoder widths, three separate
+    # (32, 1370, 1024) tensors, 16 heads
+    q, k, v = (torch.randn(b, n, h * d, device="cuda", generator=g).to(bf)
+               for _ in range(3))
+    check("K9", (b, n, h * d),
+          lambda: k1.flash_attention_packed(q, k, v, h, d ** -0.5),
+          lambda fp32: k1.flash_attention_packed_reference(
+              *((t.float() for t in (q, k, v)) if fp32 else (q, k, v)), h,
+              d ** -0.5), True, TOL["K9"],
+          cost=(4 * b * n * h * d * 2, 4 * b * h * n * n * d),
+          library=lambda: F.scaled_dot_product_attention(
+              *(t.view(b, n, h, d).transpose(1, 2) for t in (q, k, v)),
+              scale=d ** -0.5))
+    del q, k, v
+    # K10: the vitl tail's two upsamples (16-frame chunks), bit-exact with
+    # the twin; ~9 fp32 operations an output element, at the fp32 rate
+    for shape, out_hw in (((16, 148, 148, 256), (296, 296)),
+                          ((16, 296, 296, 128), (518, 518))):
+        x = torch.randn(*shape, device="cuda", generator=g).to(bf)
+        n_out = shape[0] * out_hw[0] * out_hw[1] * shape[3]
+        check("K10", (*shape, *out_hw),
+              lambda: k10.resize_bilinear_fused(x, out_hw),
+              lambda fp32: k10.resize_bilinear_fused_reference(x, out_hw),
+              False, TOL["K10"], reps=20,
+              cost=((x.numel() + n_out) * 2, 9 * n_out),
+              ops_dtype=torch.float32,
+              library=lambda: F.interpolate(
+                  x.permute(0, 3, 1, 2), size=out_hw, mode="bilinear",
+                  align_corners=True))
+        del x
+
     # fp32 at small shapes
     qkv = torch.randn(2, 200, 3 * 2 * 64, device="cuda", generator=g)
     check("K1", qkv.shape, lambda: k1.flash_attention_qkv(qkv, 2, 0.125,
@@ -343,6 +428,14 @@ def phase_kernels(model):
     check("K4", h.shape, lambda: k34.attention_block_fused(a0, n0, h, pe0, 8),
           lambda fp32: k34.attention_block_reference(a0, n0, h, pe0, 8), True,
           TOL["fp32"])
+    # K7 in fp32 at vitl's width (its head outputs in the device-memory
+    # workspace), ragged with keys masked; K9 in fp32
+    k7_case(2, 300, 16, 64, torch.float32, valid=257)
+    q = torch.randn(2, 530, 3 * 128, device="cuda", generator=g)
+    check("K9", (2, 530, 128), lambda: k1.flash_attention_packed(
+        *q.split(128, dim=-1), 2, 0.125),
+          lambda fp32: k1.flash_attention_packed_reference(
+              *q.split(128, dim=-1), 2, 0.125), True, TOL["fp32"])
     return results
 
 
@@ -512,6 +605,144 @@ def phase_vits_window(frames):
     return counts
 
 
+def phase_fused_window(model, frames):
+    """The vitl video again through ``infer_video_depth(fuse_proj=True,
+    resize_kernel=True)``, launch counts asserted per window; then one
+    window's forward with both switches against the default-kernel forward
+    and the all-plain forward (bench.py's test), the two kernel
+    configurations timed in turns (default, fused, fused, default).
+    Returns the launches of the video."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    fused = dict(fuse_proj=True, resize_kernel=True)
+    vt.infer_video_depth(model, frames[:32], 30.0, **fused)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    depths, _ = vt.infer_video_depth(model, frames, 30.0, **fused)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_windows = len(range(0, len(frames), 22))
+    want = {k: v * n_windows for k, v in PER_FUSED_WINDOW.items()}
+    if counts != want:
+        raise AssertionError(f"fused launch counts {counts} != {want}")
+    if depths.shape != frames.shape[:3] or not np.isfinite(depths).all() \
+            or not depths.std() > 0:
+        raise AssertionError("fused depths not finite, constant or of the "
+                             "wrong shape")
+    x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
+                          (SIZE, SIZE), dtype=torch.bfloat16)
+    mb = dict(micro_batch_size=16)  # infer_video_depth's tail chunks
+    ms = {}
+    for name in ("default", "fused", "fused", "default"):
+        kw = dict(mb, **(fused if name == "fused" else {}))
+        ms.setdefault(name, []).append(
+            time_ms(lambda: vt.forward(model, x, **kw), reps=3))
+    got = vt.forward(model, x, **mb, **fused)
+    vs = {"default": vt.forward(model, x, **mb),
+          "plain": vt.forward(model, x, attn_impl="plain", **mb)}
+    agree = {k: agreement(r, got) for k, r in vs.items()}
+    emit(phase="fused_window", frames=len(frames), windows=n_windows,
+         wall_s=wall, ms_per_frame=1e3 * wall / len(frames),
+         launches=counts, depth_std=float(depths.std()),
+         window_ms_in_turns=ms,
+         **{f"max_rel_vs_{k}": a[0] for k, a in agree.items()},
+         **{f"agree_125_vs_{k}": a[1] for k, a in agree.items()})
+    for k, (max_rel, share) in agree.items():
+        if not (max_rel < 1e-2 and share > 0.999):
+            raise AssertionError(f"fused window vs {k}: max_rel {max_rel}, "
+                                 f"agree_125 {share}")
+    return counts
+
+
+def phase_fused_stream(model, frames):
+    """vitl ``StreamingDepth(fuse_proj=True)`` against the default stream
+    over the first frames, stepped in turns: K7 24 a step and no K1, each
+    step within 2e-2 of the default stream's (the bound the repo holds two
+    kernel flavours of one stream to).  Returns the launches of the fused
+    stream."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+
+    streams = {"kv": vt.StreamingDepth(model),
+               "fused": vt.StreamingDepth(model, fuse_proj=True)}
+    total = dict(ZERO)
+    step_ms = {name: [] for name in streams}
+    worst = 0.0
+    for i, f in enumerate(frames):
+        depth = {}
+        for name, stream in streams.items():
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            depth[name] = stream.submit(f)
+            torch.cuda.synchronize()
+            step_ms[name].append(1e3 * (time.perf_counter() - t0))
+            if name == "fused":
+                counts = ops.launch_counts()
+                want = {**PER_STEP, "K1": 0, "K7": 24,
+                        "K5": 8 if i == 0 else 0}
+                if counts != want:
+                    raise AssertionError(f"fused stream step {i}: launches "
+                                         f"{counts} != {want}")
+                total = {k: total[k] + counts[k] for k in total}
+        r = rel(depth["kv"], depth["fused"])[1]
+        worst = max(worst, r)
+        if not torch.isfinite(depth["fused"]).all() or not r < 2e-2:
+            raise AssertionError(f"fused stream step {i}: max_rel {r}")
+    emit(phase="fused_stream", frames=len(frames), step_ms=step_ms,
+         median_ms_steps_2_on={k: float(np.median(v[2:]))
+                               for k, v in step_ms.items()},
+         max_rel_fused_vs_kv=worst, launches=total)
+    return total
+
+
+def phase_cross_attention():
+    """``models.cross_attention`` at vitl encoder widths (B 32, N 1370, C
+    1024, 16 heads of 64), seeded weights: self-attention with
+    ``impl="auto"`` launches K9 once and agrees with ``impl="plain"``
+    (bench.py's max_rel < 1e-2); a cross call with a 77-token context (M !=
+    N) launches nothing.  Returns the launches of the two calls."""
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.models.cross_attention import (CrossAttention,
+                                                      cross_attention)
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    attn = CrossAttention(1024, heads=16, dim_head=64, device="cuda")
+    attn.requires_grad_(False)
+    for p in attn.parameters():
+        p.uniform_(-1024 ** -0.5, 1024 ** -0.5, generator=g)
+    x = torch.randn(32, 1370, 1024, device="cuda", generator=g)
+    x = x.to(torch.bfloat16)
+    ctx = torch.randn(32, 77, 1024, device="cuda", generator=g)
+    ctx = ctx.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = cross_attention(attn, x, impl="auto")
+    torch.cuda.synchronize()
+    self_counts = ops.launch_counts()
+    cross = cross_attention(attn, x, encoder_hidden_states=ctx, impl="auto")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ref = cross_attention(attn, x, impl="plain")
+    ref_cross = cross_attention(attn, x, encoder_hidden_states=ctx,
+                                impl="plain")
+    max_rel = rel(ref, got)[1]
+    emit(phase="cross_attention", shape=list(x.shape), launches_self=
+         self_counts, launches=counts, max_rel_vs_plain=max_rel,
+         cross_equal_to_plain=bool(torch.equal(cross, ref_cross)))
+    if self_counts != {**ZERO, "K9": 1} or counts != self_counts:
+        raise AssertionError(f"cross_attention launches {self_counts}, "
+                             f"then {counts}")
+    if not torch.isfinite(got).all() or not max_rel < 1e-2 \
+            or not torch.equal(cross, ref_cross):
+        raise AssertionError(f"cross_attention vs plain: max_rel {max_rel}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -530,7 +761,11 @@ def main() -> int:
     phase_cross_check(model, frames)
     stream = phase_stream(model, frames[:N_STREAM])
     vits = phase_vits_window(frames)
-    launches = {k: window[k] + stream[k] + vits[k] for k in KERNELS}
+    fused = phase_fused_window(model, frames)
+    fused_stream = phase_fused_stream(model, frames[:N_FUSED_STREAM])
+    cross = phase_cross_attention()
+    paths = (window, stream, vits, fused, fused_stream, cross)
+    launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     idle = [k for k, n in launches.items() if not n]
     if idle:
         raise AssertionError(f"kernels never launched on a main path: {idle}")
@@ -542,7 +777,9 @@ def main() -> int:
          "bound_ms": results[k]["bound_ms"],
          "bound_by": results[k]["bound_by"],
          "library_ms": results[k]["library_ms"],
-         "shape": results[k]["shape"]} for k in KERNELS]}), flush=True)
+         "shape": results[k]["shape"],
+         **({"split_ms": results[k]["split_ms"]} if "split_ms" in results[k]
+            else {})} for k in KERNELS]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

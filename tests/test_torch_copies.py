@@ -12,14 +12,20 @@ import pytest
 import vda_tpu.config as jconfig
 from vda_tpu.infer import stitching as jstitch
 from vda_tpu.infer.windowed import window_source_indices as jwindows
+from vda_tpu.ops import pallas_attention as jpallas_attention
+from vda_tpu.ops import pallas_resize as jpallas_resize
 from vda_tpu.ops import resize as jresize
 
 import vda_tpu_torch.config as tconfig
 from vda_tpu_torch.infer import stitching as tstitch
 from vda_tpu_torch.infer.windowed import window_source_indices as twindows
+from vda_tpu_torch.ops import attn_proj_kernel as tattn_proj
 from vda_tpu_torch.ops import resize as tresize
+from vda_tpu_torch.ops import resize_kernel as tresize_kernel
 from vda_tpu_torch.utils import transform as ttransform
 from vda_tpu.utils import transform as jtransform
+
+from tests.torch_port import resize_gate_cases
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONSTANTS = ["INFER_LEN", "OVERLAP", "KEYFRAMES", "INTERP_LEN", "ALIGN_LEN",
@@ -78,11 +84,60 @@ def test_resize_policy_equal(hw):
             jtransform.compute_resize_hw(*hw, size)
 
 
+@pytest.mark.parametrize("args", [(37, 74, True, None), (296, 518, True, None),
+                                  (148, 296, True, None),
+                                  (70, 56, False, None),
+                                  (4, 5, False, 1.3), (1, 3, True, None),
+                                  (9, 1, True, None), (8, 16, True, None)])
+def test_lerp_tables_equal(args):
+    for got, ref in zip(tresize._lerp_tables(*args),
+                        jresize._lerp_tables(*args)):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("out_h", [14, 16, 28, 32, 37, 56, 74, 148, 296, 518,
+                                   7, 9, 1])
+def test_pick_block_equal(out_h):
+    assert tresize_kernel._pick_block(out_h) == \
+        jpallas_resize._pick_block(out_h)
+
+
+@pytest.mark.parametrize("n", [17, 530, 1370, 1376, 1408, 2000, 4097])
+@pytest.mark.parametrize("heads,dh", [(16, 64), (24, 64), (6, 64), (12, 64),
+                                      (4, 256), (8, 12), (3, 20)])
+def test_attn_proj_fits_equal(n, heads, dh):
+    assert tattn_proj.attn_proj_fits(n, heads, dh) == \
+        jpallas_attention.attn_proj_fits(n, heads, dh)
+    assert tattn_proj.attn_proj_fits(n, heads, dh, 4) == \
+        jpallas_attention.attn_proj_fits(n, heads, dh, 4)
+
+
+@pytest.mark.parametrize("case", resize_gate_cases(), ids=str)
+def test_resize_gate_logic_equal(monkeypatch, case):
+    """K10's gate is JAX's ``supported`` without its environment switch:
+    with the switch on, the two agree on every case of the grid."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    monkeypatch.setenv("VDA_RESIZE_KERNEL", "1")
+    shape, out_hw, ac, scale, f32 = case
+    jx = jax.ShapeDtypeStruct(shape, jnp.float32 if f32 else jnp.bfloat16)
+    tx = torch.empty(shape, dtype=torch.float32 if f32 else torch.bfloat16,
+                     device="meta")
+    assert tresize_kernel.supported(tx, out_hw, ac, scale) == \
+        jpallas_resize.supported(jx, out_hw, ac, scale)
+
+
 def test_port_imports_no_jax():
     code = ("import sys; import vda_tpu_torch, vda_tpu_torch.ops, "
             "vda_tpu_torch.infer.windowed, vda_tpu_torch.infer.streaming, "
             "vda_tpu_torch.ops.tiny_seq_kernel, "
             "vda_tpu_torch.ops.stream_kernel, vda_tpu_torch.utils.convert, "
+            "vda_tpu_torch.ops.attn_proj_kernel, "
+            "vda_tpu_torch.ops.resize_kernel, "
+            "vda_tpu_torch.models.cross_attention, "
             "vda_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'vda_tpu.')) or m == 'vda_tpu']; print(bad); "

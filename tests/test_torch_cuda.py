@@ -1,6 +1,6 @@
-"""The port's six kernels against their plain twins on the card, over the
+"""The port's nine kernels against their plain twins on the card, over the
 widths the model configs give them, and one small forward and one small
-stream with and without the kernels.
+stream with and without the kernels (and with K7/K10 switched on).
 
 Needs an NVIDIA GPU with nvcc and Triton; elsewhere every test skips.  Run
 on the GPU host from the repo root, without the JAX test configuration:
@@ -13,7 +13,9 @@ bound, docs/PARITY.md); bf16 K3/K4 against the bf16 twin, which rounds at
 the same points, 2e-2 (the bound tests/test_pallas_temporal.py holds the
 fused temporal kernels to); bf16 K5/K6 against the bf16 twin, which rounds
 at the same points, 3.9e-3 (a summation order that flips one rounding moves
-an output by at most one bf16 ulp); fp32, summation order only, 1e-4.
+an output by at most one bf16 ulp); bf16 K9 as K1; bf16 K7 against the
+bf16 twin, 2e-2 (the bound tests/test_attn_fuse_proj.py holds the JAX fused
+kernel to); K10 bit-exact with its twin; fp32, summation order only, 1e-4.
 """
 
 import pytest
@@ -26,11 +28,14 @@ from vda_tpu_torch.models.temporal import (TemporalTransformerBlock,
                                            sinusoidal_pe)
 from vda_tpu_torch.ops import (
     attention_kernel,
+    attn_proj_kernel,
     norm_kernel,
+    resize_kernel,
     stream_kernel,
     temporal_kernel,
     tiny_seq_kernel,
 )
+from vda_tpu_torch.ops.resize import resize_bilinear
 
 pytestmark = pytest.mark.cuda
 
@@ -266,6 +271,132 @@ def test_k5_k6_wrappers_refuse_what_the_kernels_do_not_take(gen):
             torch.ones(200, dtype=torch.bool, device="cuda"), 1, 0.1)
 
 
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("b,n,heads,dh", [
+    (2, 530, 2, 64), (1, 1370, 16, 64), (2, 257, 6, 64), (2, 130, 2, 80),
+    (2, 64, 4, 128), (2, 65, 8, 8)])
+def test_k9_attention_packed(gen, dtype, b, n, heads, dh):
+    """K9 on three separate tensors, and on column slices of one fused
+    projection: both bit-identical with K1 on the fused tensor, which runs
+    the same device code."""
+    qkv = torch.randn(b, n, 3 * heads * dh, device="cuda", generator=gen)
+    qkv = qkv.to(dtype)
+    q, k, v = (t.contiguous() for t in qkv.split(heads * dh, dim=-1))
+    scale = dh ** -0.5
+    got = _launched("K9", lambda: attention_kernel.flash_attention_packed(
+        q, k, v, heads, scale))
+    ref = attention_kernel.flash_attention_packed_reference(
+        q.float(), k.float(), v.float(), heads, scale)
+    assert got.dtype == dtype and got.shape == (b, n, heads * dh)
+    assert _rel(ref, got) < TOL[dtype]
+    fused = attention_kernel.flash_attention_qkv(qkv, heads, scale)
+    sliced = attention_kernel.flash_attention_packed(
+        *qkv.split(heads * dh, dim=-1), heads, scale)
+    assert torch.equal(fused, got) and torch.equal(sliced, got)
+    got4 = attention_kernel.flash_attention(
+        *(t.view(b, n, heads, dh) for t in (q, k, v)), scale)
+    assert torch.equal(got4.reshape(b, n, heads * dh), got)
+
+
+def _k7_inputs(gen, b, n, heads, dh, dtype):
+    """qkv, w (out, in), gamma_bias and x, scaled so that the attention
+    branch and the residual are of one size."""
+    c = heads * dh
+    def mk(*shape, s=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * s
+    qkv = mk(b, n, 3 * c, s=2.0).to(dtype)
+    w = mk(c, c, s=c ** -0.5).to(dtype)
+    gb = torch.stack([1 + 0.5 * mk(c), mk(c, s=0.1)])
+    x = mk(b, n, c, s=0.1).to(dtype)
+    return qkv, w, gb, x
+
+
+# (B, N, heads, dh): vits/vitb/vitl widths at their window lengths, ragged
+# N, a width that is not a multiple of 64, heads of 128 and of 8
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("b,n,heads,dh,valid", [
+    (2, 530, 6, 64, None), (1, 1370, 12, 64, None), (2, 1370, 16, 64, None),
+    (2, 300, 16, 64, 257), (2, 77, 5, 24, None), (2, 65, 8, 128, None),
+    (3, 130, 2, 8, 129), (1, 17, 2, 64, 1)])
+def test_k7_attention_proj(gen, dtype, b, n, heads, dh, valid):
+    """K7 against its twin on the same inputs (bf16: the bound the JAX
+    package holds its fused kernel to, tests/test_attn_fuse_proj.py)."""
+    qkv, w, gb, x = _k7_inputs(gen, b, n, heads, dh, dtype)
+    scale = dh ** -0.5
+    got = _launched("K7", lambda: attn_proj_kernel.flash_attention_qkv_proj(
+        qkv, w, gb, x, heads, scale, valid))
+    ref = attn_proj_kernel.flash_attention_qkv_proj_reference(
+        qkv, w, gb, x, heads, scale, valid)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _rel(ref, got) < TOL_TEMPORAL[dtype]
+
+
+# the two vitl window shapes (at batch 8), the gate's cases of
+# tests/test_ops.py, an odd ratio and a 16-row block
+K10_CASES = [((8, 148, 148, 256), (296, 296)),
+             ((8, 296, 296, 128), (518, 518)),
+             ((8, 20, 24, 128), (32, 40)), ((8, 148, 16, 128), (296, 28)),
+             ((9, 9, 7, 256), (14, 13)), ((8, 5, 3, 384), (32, 7))]
+
+
+@pytest.mark.parametrize("shape,out_hw", K10_CASES)
+def test_k10_resize_bilinear(gen, shape, out_hw):
+    """K10 is bit-exact with its twin, on a contiguous input and on
+    strided ones: channels sliced from a wider tensor and H/W transposed
+    (read through their strides), channels-first memory (made contiguous by
+    the wrapper)."""
+    x = torch.randn(*shape, device="cuda", generator=gen).to(BF)
+    assert resize_kernel.supported(x, out_hw, True, None)
+    got = _launched("K10", lambda: resize_kernel.resize_bilinear_fused(
+        x, out_hw))
+    ref = resize_kernel.resize_bilinear_fused_reference(x, out_hw)
+    assert got.shape == (shape[0], *out_hw, shape[3]) and got.dtype == BF
+    assert torch.equal(got, ref)
+    wide = torch.cat([x, x], dim=-1)[..., :shape[3]]
+    assert torch.equal(resize_kernel.resize_bilinear_fused(wide, out_hw), ref)
+    for odd in (x.transpose(1, 2).contiguous().transpose(1, 2),
+                x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)):
+        assert torch.equal(resize_kernel.resize_bilinear_fused(odd, out_hw),
+                           ref)
+    plain = _rel(resize_bilinear(x.float(), out_hw), got)
+    assert plain < 2e-2  # tests/test_ops.py's bound against fp32
+
+
+def test_k7_k9_k10_refuse_what_the_kernels_do_not_take(gen):
+    qkv, w, gb, x = _k7_inputs(gen, 2, 64, 24, 64, BF)  # vitg C=1536
+    with pytest.raises(ValueError):
+        attn_proj_kernel.flash_attention_qkv_proj(qkv, w, gb, x, 24, 0.125)
+    qkv, w, gb, x = _k7_inputs(gen, 2, 64, 4, 64, BF)
+    with pytest.raises(ValueError):  # w not in the working dtype
+        attn_proj_kernel.flash_attention_qkv_proj(qkv, w.float(), gb, x, 4,
+                                                  0.125)
+    with pytest.raises(ValueError):  # gamma_bias not fp32
+        attn_proj_kernel.flash_attention_qkv_proj(qkv, w, gb.to(BF), x, 4,
+                                                  0.125)
+    with pytest.raises(ValueError):  # a strided residual
+        attn_proj_kernel.flash_attention_qkv_proj(
+            qkv, w, gb, torch.cat([x, x], -1)[..., :256], 4, 0.125)
+    with pytest.raises(NotImplementedError):  # no backward yet
+        attn_proj_kernel.flash_attention_qkv_proj(
+            qkv, w, gb, x.float().requires_grad_().to(BF), 4, 0.125)
+    q = torch.randn(2, 64, 256, device="cuda", generator=gen).to(BF)
+    with pytest.raises(ValueError):  # k laid out unlike q
+        attention_kernel.flash_attention_packed(
+            q, torch.cat([q, q], -1)[..., :256], q, 4, 0.125)
+    with pytest.raises(ValueError):  # fp16
+        attention_kernel.flash_attention_packed(q.half(), q.half(), q.half(),
+                                                4, 0.125)
+    with pytest.raises(NotImplementedError):  # no backward yet
+        r = q.float().requires_grad_()
+        attention_kernel.flash_attention_packed(r, r, r, 4, 0.125)
+    x = torch.zeros(8, 20, 24, 128, device="cuda", dtype=BF)
+    for bad, hw in [(x.float(), (32, 40)), (x[:4], (32, 40)),
+                    (x[..., :64], (32, 40)), (x, (10, 40)), (x, (37, 40))]:
+        assert not resize_kernel.supported(bad, hw, True, None)
+        with pytest.raises(ValueError):
+            resize_kernel.resize_bilinear_fused(bad, hw)
+
+
 def _small_model(gen, depth=2):
     """Widths that pass every kernel gate: encoder heads of 64 (K1 at 530
     tokens, 322x322 input), temporal modules at C=640 (K4; 8 heads of 80)
@@ -276,21 +407,27 @@ def _small_model(gen, depth=2):
     return vt.init_random(cfg, gen, device="cuda").requires_grad_(False)
 
 
+@pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("dtype", [BF, F32])
-def test_forward_kernels_match_plain(gen, dtype):
+def test_forward_kernels_match_plain(gen, dtype, fused):
     """A small model whose widths pass every kernel gate: each kernel runs
     its expected number of times, and the output matches attn_impl="plain"
-    (bf16: bench.py's max_rel < 1e-2; fp32: 1e-4)."""
+    (bf16: bench.py's max_rel < 1e-2; fp32: 1e-4).  ``fused``: K7 takes
+    every block, and K10 refinenet1's upsample (features 128; the island's
+    64 channels are refused) of the 8-frame tail in bf16."""
     depth = 2
     model = _small_model(gen, depth)
     x = torch.randn(1, 8, 322, 322, 3, device="cuda", generator=gen)
     x = x.to(dtype)
     tops.reset_launch_counts()
-    got = vt.forward(model, x)
+    got = vt.forward(model, x, micro_batch_size=8, fuse_proj=fused,
+                     resize_kernel=fused)
     torch.cuda.synchronize()
     # K2: two block norms a layer, four tap norms, mm0/mm1's ff_norm
-    assert tops.launch_counts() == {"K1": depth, "K2": 2 * depth + 4 + 2,
-                                    "K3": 2, "K4": 4, "K5": 0, "K6": 0}
+    assert tops.launch_counts() == {
+        "K1": 0 if fused else depth, "K2": 2 * depth + 4 + 2, "K3": 2,
+        "K4": 4, "K5": 0, "K6": 0, "K7": depth if fused else 0, "K9": 0,
+        "K10": int(fused and dtype == BF)}
     ref = vt.forward(model, x, attn_impl="plain")
     assert got.shape == ref.shape == (1, 8, 322, 322)
     assert float(ref.float().std()) > 0
@@ -310,6 +447,7 @@ def test_streaming_kernels_match_plain(gen):
     plain = vt.StreamingDepth(model, input_size=322, attn_impl="plain")
     kv = vt.StreamingDepth(model, input_size=322)
     ctx = vt.StreamingDepth(model, input_size=322, ctx_kernel=True)
+    fused = vt.StreamingDepth(model, input_size=322, fuse_proj=True)
     for i, f in enumerate(frames):
         ref = plain.submit(f)
         a = kv.submit(f)
@@ -321,7 +459,13 @@ def test_streaming_kernels_match_plain(gen):
         assert (n["K5"], n["K6"]) == ((8, 0) if i == 0 else (0, 4))
         assert _rel(ref, a) < 1e-2 and _rel(ref, b) < 1e-2
         assert _rel(a, b) < 2e-2
-        assert ctx.order == kv.order == plain.order
+        tops.reset_launch_counts()
+        c = fused.submit(f)
+        torch.cuda.synchronize()
+        n = tops.launch_counts()
+        assert (n["K1"], n["K7"]) == (0, depth)
+        assert _rel(a, c) < 2e-2
+        assert ctx.order == kv.order == plain.order == fused.order
 
 
 def test_streaming_cache_kinds_agree(gen):

@@ -21,6 +21,7 @@ import vda_tpu_torch.ops as tops
 from vda_tpu_torch import config as tconfig
 from vda_tpu_torch.models.temporal import TemporalTransformerBlock
 from vda_tpu_torch.ops import attention_kernel, norm_kernel, temporal_kernel
+from vda_tpu_torch.ops.layers import cast_once
 
 from tests.torch_port import rel_err
 
@@ -32,7 +33,8 @@ def counters_at_rest():
     tops.reset_launch_counts()
     yield
     assert tops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                    "K5": 0, "K6": 0}
+                                    "K5": 0, "K6": 0, "K7": 0, "K9": 0,
+                                    "K10": 0}
 
 
 def _t(a):
@@ -148,19 +150,39 @@ def test_gates_follow_jax():
             pallas_temporal.attn_fused_supported(c, t, pe, heads)
 
 
-def test_weight_casts_are_made_once():
+def test_weight_casts_are_made_once(monkeypatch):
     """K3/K4 cast their weights to the working dtype once per parameter and
-    make a new copy only after the parameter changes."""
+    make a new copy only after the parameter changes; so does the encoder
+    block for K7's projection weight."""
     lin = torch.nn.Linear(128, 128).requires_grad_(False)
-    w = temporal_kernel._weight(lin.weight, torch.bfloat16)
+    w = cast_once(lin.weight, torch.bfloat16)
     assert w.dtype == torch.bfloat16 and w.is_contiguous()
-    assert temporal_kernel._weight(lin.weight, torch.bfloat16) is w
-    assert temporal_kernel._weight(lin.weight, torch.float32).data_ptr() == \
+    assert cast_once(lin.weight, torch.bfloat16) is w
+    assert cast_once(lin.weight, torch.float32).data_ptr() == \
         lin.weight.data_ptr()  # already in the working dtype: no copy
     lin.weight.mul_(2.0)
-    w2 = temporal_kernel._weight(lin.weight, torch.bfloat16)
+    w2 = cast_once(lin.weight, torch.bfloat16)
     assert w2 is not w
     assert torch.equal(w2, lin.weight.to(torch.bfloat16))
+
+    from vda_tpu_torch.models import dinov2
+    from vda_tpu_torch.ops import attn_proj_kernel
+
+    cfg = tconfig.EncoderConfig(embed_dim=128, depth=1, num_heads=2)
+    blk = dinov2.Block(cfg).requires_grad_(False)
+    for p in blk.parameters():
+        p.uniform_(-0.1, 0.1)
+    seen = []
+    wrapper = attn_proj_kernel.flash_attention_qkv_proj
+    monkeypatch.setattr(attn_proj_kernel, "flash_attention_qkv_proj",
+                        lambda qkv, w, *a: seen.append(w) or wrapper(qkv, w,
+                                                                     *a))
+    x = torch.randn(1, 530, 128).to(torch.bfloat16)
+    for _ in range(2):
+        dinov2.block_apply(blk, x, cfg, kernels=True, fuse_proj=True)
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert seen[0].dtype == torch.bfloat16
+    assert torch.equal(seen[0], blk.attn.proj.weight.to(torch.bfloat16))
 
 
 def test_wrappers_refuse_other_devices():
@@ -170,3 +192,15 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         norm_kernel.fused_layer_norm(x[..., :128], torch.ones(128),
                                      torch.zeros(128))
+    from vda_tpu_torch.ops import attn_proj_kernel, resize_kernel
+    q = x[..., :128]
+    with pytest.raises(ValueError):
+        attention_kernel.flash_attention_packed(q, q, q, 2, 0.1)
+    with pytest.raises(ValueError):
+        attn_proj_kernel.flash_attention_qkv_proj(
+            x, torch.zeros(128, 128, device="meta"),
+            torch.zeros(2, 128, device="meta"), q, 2, 0.1)
+    with pytest.raises(ValueError):
+        resize_kernel.resize_bilinear_fused(
+            torch.zeros(8, 4, 4, 128, dtype=torch.bfloat16, device="meta"),
+            (8, 8))

@@ -132,6 +132,19 @@ def test_forward_rejects_unknown_attn_impl(models, frames):
         tvda.forward(models[2], torch.from_numpy(frames), attn_impl="pallas")
 
 
+def test_model_is_built_on_the_card_unless_asked():
+    """``VideoDepthAnything`` builds its parameters on the card by default,
+    as ``init_random`` does; a CPU caller passes ``device="cpu"``."""
+    import inspect
+
+    import vda_tpu_torch as vt
+
+    sig = inspect.signature(vt.VideoDepthAnything)
+    assert sig.parameters["device"].default == "cuda"
+    model = vt.VideoDepthAnything(vt.get_config("tiny"), device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
 def test_init_random_runs_on_the_card_unless_asked():
     """The port's entry points run on the card unless the caller asks for
     the CPU: ``init_random`` defaults to ``"cuda"``, and a CPU caller

@@ -19,6 +19,10 @@ from vda_tpu_torch.utils import profiling
      "(...)", "K5 tiny_seq"),
     ("void vda::(anonymous namespace)::stream_kv_kernel<float>(...)",
      "K6 stream_kv"),
+    ("void vda::(anonymous namespace)::attention_proj_bf16_kernel<64>(...)",
+     "K7 attention_proj"),
+    ("void vda::(anonymous namespace)::resize_bilinear_kernel(...)",
+     "K10 resize_bilinear"),
     ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_"
      "impl_nocast<at::native::direct_copy_kernel_cuda(...)", "copy"),
     ("Memcpy HtoD (Pageable -> Device)", "copy"),

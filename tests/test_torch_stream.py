@@ -41,7 +41,7 @@ def _shared(head, vit, seed, **kw):
     tcfg = tconfig.ModelConfig(*head, tconfig.EncoderConfig(**vit), **kw)
     params = init_video_depth_anything(jax.random.PRNGKey(seed), jcfg)
     params = nonzero_proj_out(params, np.random.default_rng(seed))
-    model = vt.VideoDepthAnything(tcfg).requires_grad_(False)
+    model = vt.VideoDepthAnything(tcfg, device="cpu").requires_grad_(False)
     vt.load_state_dict_numpy(model, export_state_dict(params, jcfg))
     return params, jcfg, model
 

@@ -26,10 +26,12 @@ import vda_tpu_torch as vt
 from vda_tpu_torch import config as tconfig
 
 
-def small_configs():
-    """(JAX ModelConfig, port ModelConfig) of the small kernel-shaped model."""
+def small_configs(features: int = 128):
+    """(JAX ModelConfig, port ModelConfig) of the small kernel-shaped model.
+    ``features=256`` gives the head vitl's widths where K10 engages: the
+    output tail's island at 128 channels and refinenet1 at 256."""
     kw = dict(embed_dim=128, depth=2, num_heads=2, img_size=56)
-    head = ("small", 128, (128, 128, 640, 640), (0, 0, 1, 1))
+    head = ("small", features, (128, 128, 640, 640), (0, 0, 1, 1))
     return (ModelConfig(*head, EncoderConfig(**kw)),
             tconfig.ModelConfig(*head, tconfig.EncoderConfig(**kw)))
 
@@ -45,12 +47,13 @@ def nonzero_proj_out(params, rng):
     return params
 
 
-def small_models(seed: int = 0):
-    """(JAX params, JAX cfg, port model, port cfg) sharing one set of weights."""
-    jcfg, tcfg = small_configs()
+def small_models(seed: int = 0, features: int = 128):
+    """(JAX params, JAX cfg, port model, port cfg) sharing one set of
+    weights."""
+    jcfg, tcfg = small_configs(features)
     params = init_video_depth_anything(jax.random.PRNGKey(seed), jcfg)
     params = nonzero_proj_out(params, np.random.default_rng(seed))
-    model = vt.VideoDepthAnything(tcfg)
+    model = vt.VideoDepthAnything(tcfg, device="cpu")
     vt.load_state_dict_numpy(model, export_state_dict(params, jcfg))
     return params, jcfg, model, tcfg
 
@@ -60,3 +63,32 @@ def rel_err(ref, got) -> float:
     ref = np.asarray(ref, np.float64)
     got = np.asarray(got, np.float64)
     return float(np.abs(ref - got).max() / max(np.abs(ref).max(), 1e-12))
+
+
+def resize_gate_cases():
+    """Inputs of K10's gate (``supported``): tests/test_ops.py's rejections
+    (fp32, 64 channels, batch 1, a downsample, align_corners=False, an
+    explicit scale, an H_out no row block divides) and a grid over batch,
+    channels and sizes.  Each is (shape, out_hw, align_corners, scale,
+    fp32)."""
+    ok = ((8, 20, 24, 128), (32, 40), True, None, False)
+    cases = [ok,
+             ((8, 20, 24, 128), (32, 40), True, None, True),
+             ((8, 20, 24, 64), (32, 40), True, None, False),
+             ((1, 20, 24, 128), (32, 40), True, None, False),
+             ((8, 20, 24, 128), (10, 40), True, None, False),
+             ((8, 20, 24, 128), (32, 40), False, None, False),
+             ((8, 20, 24, 128), (32, 40), True, (2.0, 2.0), False),
+             ((8, 20, 24, 128), (37, 40), True, None, False)]
+    for b in (1, 7, 8, 16):
+        for c in (64, 128, 200, 256):
+            for (h, w), (oh, ow) in (((148, 148), (296, 296)),
+                                     ((296, 296), (518, 518)),
+                                     ((74, 74), (148, 148)),
+                                     ((37, 37), (74, 74)),
+                                     ((19, 19), (37, 37)),
+                                     ((20, 24), (20, 24)),
+                                     ((20, 24), (32, 20)),
+                                     ((9, 7), (14, 13))):
+                cases.append(((b, h, w, c), (oh, ow), True, None, False))
+    return cases

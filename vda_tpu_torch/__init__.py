@@ -1,13 +1,16 @@
 """vda_tpu_torch: the PyTorch and CUDA port of ``vda_tpu``.
 
 It runs Video Depth Anything on an NVIDIA Hopper GPU: offline windowed
-inference (``infer_video_depth``) and causal streaming
-(``StreamingDepth``).  Plain tensor code is PyTorch; the six TPU kernels of
-those paths are hand-written Hopper kernels, each beside a plain PyTorch
-twin:
+inference (``infer_video_depth``, optionally with ``fuse_proj`` and
+``resize_kernel``) and causal streaming (``StreamingDepth``), plus the
+generic attention library (``models/cross_attention.py``).  Plain tensor
+code is PyTorch; the nine TPU kernels of those paths are hand-written
+Hopper kernels, each beside a plain PyTorch twin:
 
-  * K1 ``ops/attention_kernel.py`` + ``csrc/attention_qkv.cu``: encoder
-    attention read in place from the fused qkv projection
+  * K1 / K9 ``ops/attention_kernel.py`` + ``csrc/attention_qkv.cu``:
+    attention read in place from the fused qkv projection / over separate
+    q, k and v (``ops/attention.py``'s dispatch), one device loop
+    (``csrc/flash_attention.cuh``)
   * K2 ``ops/norm_kernel.py`` (Triton): one-pass LayerNorm
   * K3 / K4 ``ops/temporal_kernel.py`` + ``csrc/temporal_block.cu``: a whole
     temporal transformer block / one attention sub-block
@@ -15,6 +18,11 @@ twin:
     attention inside each short temporal sequence
   * K6 ``ops/stream_kernel.py`` + ``csrc/stream_kv_attention.cu``: a new
     frame's attention over the streaming cache
+  * K7 ``ops/attn_proj_kernel.py`` + ``csrc/attention_proj.cu``: attention,
+    out-projection, LayerScale and residual of an encoder block
+    (``fuse_proj=True``)
+  * K10 ``ops/resize_kernel.py`` + ``csrc/resize_bilinear.cu``: the output
+    tail's bf16 bilinear upsamples (``resize_kernel=True``)
 
 The package never imports JAX or ``vda_tpu``; the JAX package is the
 reference its tests hold it to.

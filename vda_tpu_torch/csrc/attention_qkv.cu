@@ -1,463 +1,122 @@
-// K1: non-causal multi-head self-attention read in place from the fused qkv
-// projection (B, N, 3*H*D), q/k/v at column offsets 0, H*D and 2*H*D.
+// K1 and K9: non-causal multi-head self-attention over head-packed
+// (B, N, H*D) q, k and v.
 //
-// Replaces vda_tpu/ops/pallas_attention.py flash_attention_qkv
-// (_attn_kernel_packed).  The TPU kernel held a whole head's K and V in VMEM
-// (~350 KB at N=1370); a block here may hold 227 KB, so this is a flash
-// attention: one block of 4 warps per (64-row query tile, head, batch) walks
-// 64-row K/V tiles with an online softmax.  Running max and sum and the
-// output accumulator are fp32; the output is normalised once at the end.
+// K1 replaces vda_tpu/ops/pallas_attention.py flash_attention_qkv
+// (_attn_kernel_packed) and reads q/k/v in place from the fused qkv
+// projection (B, N, 3*H*D): q, q + H*D and q + 2*H*D with a row stride of
+// 3*H*D.  K9 replaces flash_attention_packed (the same kernel body over three
+// separate tensors): the same entry point with three pointers and a row
+// stride of H*D.  One device loop (flash_attention.cuh) serves both.
 //
-// bf16: each warp owns 16 query rows and keeps everything of them in
-// registers: its Q fragments, the (16, 64) scores of the current K tile, the
-// probabilities and the (16, D) output accumulator.  Products are tensor-core
-// mma.sync m16n8k16 (fp32 accumulate) with operands read by ldmatrix from
-// K/V tiles that cp.async double-buffers in shared memory; the score
-// fragment is reused as the A operand of the value product, so scores never
-// leave registers.  The probabilities are rounded to bf16 before the value
-// product and the row sum adds the rounded values, so the normalisation
-// matches the weights actually applied (the TPU kernel's bf16 exp did the
-// same).
-// fp32 (tests, small shapes): the same tiling with scalar FMAs through
-// shared memory.
-// Keys at or beyond valid_len are masked; N needs no padding.
+// The TPU kernel held a whole head's K and V in VMEM (~350 KB at N=1370); a
+// block here may hold 227 KB, so this is a flash attention: one block of 4
+// warps per (64-row query tile, head, batch) walks 64-row K/V tiles with an
+// online softmax (flash_attention.cuh says how).  The output (B, N, H*D) is
+// contiguous.
 
-#include <cuda_pipeline.h>
-
-#include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace vda {
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // key rows per tile
-constexpr int NT = 128;
-
-// ---------------------------------------------------------------------------
-// bf16: registers and tensor cores
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,
-                                            bool trans) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if (trans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-}
-
-// c (16x8, fp32) += a (16x16, bf16, row) * b (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Shared memory of the bf16 kernel: Q (64, DP) and two K and two V tiles,
-// rows padded by 16 bytes so the 8 rows an ldmatrix reads hit 8 distinct
-// groups of 4 banks.
-template <int DP>
-struct Bf16Smem {
-  static constexpr int LD = DP + 8;
-  static constexpr size_t bytes = sizeof(bf16) * (BQ + 4 * BK) * LD;
-};
+using namespace flash;
 
 template <int DP>
 __global__ void __launch_bounds__(NT)
-    attention_qkv_bf16_kernel(const bf16* __restrict__ qkv,
-                              bf16* __restrict__ out, int n, int heads, int d,
-                              int valid_len, float scale) {
-  constexpr int LD = Bf16Smem<DP>::LD;
-  constexpr int KD = DP / 16;  // k-steps of the score product
+    attention_qkv_bf16_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              bf16* __restrict__ out, size_t rs, int n,
+                              int heads, int d, int valid_len, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * LD;      // two tiles
-  bf16* vs = ks + 2 * BK * LD;  // two tiles
-
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hd = heads * d;
-  const size_t rs = 3 * static_cast<size_t>(hd);
-  const bf16* base = qkv + static_cast<size_t>(b) * n * rs;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
-
-  // 64 rows of one head (columns col..col+d) into a (64, DP) tile; rows at or
-  // beyond n and columns at or beyond d are zero-filled.
-  auto load = [&](bf16* dst, int row0, int col) {
-    for (int i = tid; i < 64 * (DP / 8); i += NT) {
-      const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-      const bool ok = row0 + r < n && c < d;
-      const bf16* src =
-          ok ? base + static_cast<size_t>(row0 + r) * rs + col + c : base;
-      __pipeline_memcpy_async(dst + r * LD + c, src, 16, ok ? 0 : 16);
-    }
-  };
-
-  load(qs, q0, h * d);
-  load(ks, 0, hd + h * d);
-  load(vs, 0, 2 * hd + h * d);
-  __pipeline_commit();
-
-  uint32_t qf[KD][4];
-  float o[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
-
-  const int n_tiles = (valid_len + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_tiles) {
-      load(ks + (buf ^ 1) * BK * LD, (kt + 1) * BK, hd + h * d);
-      load(vs + (buf ^ 1) * BK * LD, (kt + 1) * BK, 2 * hd + h * d);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();  // tile kt (and, on the first, Q) is in shared memory
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk],
-                    qs + (warp * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
-                        kk * 16 + (lane / 16) * 8,
-                    false);
-    }
-    const bf16* kb = ks + buf * BK * LD;
-    const bf16* vb = vs + buf * BK * LD;
-
-    // S (16, 64) = Q K^T: eight 8-key n-tiles
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t kf[4];  // keys 16jj.. (two n-tiles), dims 16kk..
-        ldmatrix_x4(kf,
-                    kb + (jj * 16 + (lane / 16) * 8 + lane % 8) * LD +
-                        kk * 16 + ((lane / 8) % 2) * 8,
-                    false);
-        mma_bf16(s[2 * jj], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * jj + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // online softmax; this thread holds rows g (e = 0, 1) and g + 8
-    // (e = 2, 3), columns 8j + 2t + (e & 1); a row's 4 threads share a quad
-    const int kvalid = valid_len - kt * BK;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float v =
-            j * 8 + 2 * t + (e & 1) < kvalid ? s[j][e] * scale : -INFINITY;
-        s[j][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);  // finite: kvalid >= 1
-      alpha[r] = expf(m_r[r] - m_new);           // 0 on the first tile
-      m_r[r] = m_new;
-    }
-    uint32_t pf[4][4];  // P as the A operand, one per 16 keys
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      bf16 p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = __float2bfloat16(__expf(s[j][e] - m_r[e >> 1]));
-        sum[e >> 1] += __bfloat162float(p[e]);
-      }
-      pf[j / 2][(j % 2) * 2] = pack(p[0], p[1]);      // row g
-      pf[j / 2][(j % 2) * 2 + 1] = pack(p[2], p[3]);  // row g + 8
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // O (16, DP) += P V: V read transposed by ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int jd = 0; jd < DP / 16; ++jd) {
-        uint32_t vf[4];  // keys 16kk.., dims 16jd.. (two n-tiles)
-        ldmatrix_x4(vf,
-                    vb + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
-                        jd * 16 + (lane / 16) * 8,
-                    true);
-        mma_bf16(o[2 * jd], pf[kk], vf[0], vf[1]);
-        mma_bf16(o[2 * jd + 1], pf[kk], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer buf before refilling
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-  }
+  const size_t off = static_cast<size_t>(b) * n * rs + h * d;
   bf16* ob = out + static_cast<size_t>(b) * n * hd + h * d;
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (col >= d) continue;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + warp * 16 + g + 8 * r;
-      if (row < n)
-        *reinterpret_cast<__nv_bfloat162*>(
-            ob + static_cast<size_t>(row) * hd + col) =
-            __floats2bfloat162_rn(o[j][2 * r] / l_r[r],
-                                  o[j][2 * r + 1] / l_r[r]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp32: scalar FMAs through shared memory
-// ---------------------------------------------------------------------------
-
-template <int DP>
-struct F32Smem {
-  static constexpr int LDT = DP + 4;  // q/k/v tile row stride (elements)
-  static constexpr int LDS = BK + 4;  // scores / probabilities
-  static constexpr int LDO = DP + 4;  // output accumulator
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align128(q + sizeof(float) * BQ * LDT);
-  static constexpr size_t v = align128(k + sizeof(float) * BK * LDT);
-  static constexpr size_t s = align128(v + sizeof(float) * BK * LDT);
-  static constexpr size_t o = align128(s + sizeof(float) * BQ * LDS);
-  static constexpr size_t m = align128(o + sizeof(float) * BQ * LDO);
-  static constexpr size_t l = align128(m + sizeof(float) * BQ);
-  static constexpr size_t a = align128(l + sizeof(float) * BQ);
-  static constexpr size_t bytes = align128(a + sizeof(float) * BQ);
-};
-
-// 64 rows of one head (columns col..col+d) into a zero-padded (64, DP) tile;
-// rows at or beyond n are zero.
-template <int DP>
-__device__ void load_tile_f32(float* dst, const float* base, int row0, int n,
-                              size_t row_stride, int col, int d) {
-  constexpr int VPR = DP / 4;
-  for (int i = threadIdx.x; i < 64 * VPR; i += NT) {
-    const int r = i / VPR, c = (i % VPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n && c < d)
-      val = *reinterpret_cast<const float4*>(
-          base + static_cast<size_t>(row0 + r) * row_stride + col + c);
-    *reinterpret_cast<float4*>(dst + r * F32Smem<DP>::LDT + c) = val;
-  }
+  attend_bf16<DP>(q + off, k + off, v + off, rs, n, d, valid_len, scale, q0,
+                  reinterpret_cast<bf16*>(smem),
+                  [&](int r, int col, float v0, float v1) {
+                    const int row = q0 + r;
+                    if (row < n)
+                      *reinterpret_cast<__nv_bfloat162*>(
+                          ob + static_cast<size_t>(row) * hd + col) =
+                          __floats2bfloat162_rn(v0, v1);
+                  });
 }
 
 template <int DP>
 __global__ void __launch_bounds__(NT)
-    attention_qkv_f32_kernel(const float* __restrict__ qkv,
-                             float* __restrict__ out, int n, int heads, int d,
-                             int valid_len, float scale) {
-  using L = F32Smem<DP>;
+    attention_qkv_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             float* __restrict__ out, size_t rs, int n,
+                             int heads, int d, int valid_len, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + L::q);
-  float* ks = reinterpret_cast<float*>(smem + L::k);
-  float* vs = reinterpret_cast<float*>(smem + L::v);
-  float* ss = reinterpret_cast<float*>(smem + L::s);
-  float* os = reinterpret_cast<float*>(smem + L::o);
-  float* ms = reinterpret_cast<float*>(smem + L::m);
-  float* ls = reinterpret_cast<float*>(smem + L::l);
-  float* as = reinterpret_cast<float*>(smem + L::a);
-
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hd = heads * d;
-  const size_t rs = 3 * static_cast<size_t>(hd);
-  const float* base = qkv + static_cast<size_t>(b) * n * rs;
-  const int tid = threadIdx.x;
-  // thread: a 4x8 micro-tile of rows r0.., columns c0 + 8j
-  const int r0 = (tid / 8) * 4, c0 = tid % 8;
-
-  load_tile_f32<DP>(qs, base, q0, n, rs, h * d, d);
-  for (int i = tid; i < BQ * L::LDO; i += NT) os[i] = 0.f;
-  for (int i = tid; i < BQ; i += NT) {
-    ms[i] = -INFINITY;
-    ls[i] = 0.f;
-  }
-
-  const int n_tiles = (valid_len + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's readers of ks/vs/ss are done
-    load_tile_f32<DP>(ks, base, k0, n, rs, hd + h * d, d);
-    load_tile_f32<DP>(vs, base, k0, n, rs, 2 * hd + h * d, d);
-    __syncthreads();
-    {  // S = Q K^T (unscaled)
-      float acc[4][8] = {};
-      for (int dd = 0; dd < DP; ++dd) {
-        float a[4], bb[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[(r0 + i) * L::LDT + dd];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bb[j] = ks[(c0 + 8 * j) * L::LDT + dd];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          ss[(r0 + i) * L::LDS + c0 + 8 * j] = acc[i][j];
-    }
-    __syncthreads();
-    {
-      // online softmax: two threads per score row, 32 columns each
-      const int r = tid >> 1, cb = (tid & 1) * 32;
-      const int kvalid = min(BK, valid_len - k0);
-      float* srow = ss + r * L::LDS;
-      float mx = -INFINITY;
-      for (int c = cb; c < cb + 32; ++c) {
-        const float s = c < kvalid ? srow[c] * scale : -INFINITY;
-        srow[c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: kvalid >= 1
-      float sum = 0.f;
-      for (int c = cb; c < cb + 32; ++c) {
-        const float p = expf(srow[c] - m_new);
-        srow[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      if ((tid & 1) == 0) {
-        const float alpha = expf(m_old - m_new);  // 0 on the first tile
-        as[r] = alpha;
-        ls[r] = ls[r] * alpha + sum;
-        ms[r] = m_new;
-      }
-    }
-    __syncthreads();
-    {  // O = O * alpha + P V
-      constexpr int NJ = DP / 8;
-      float acc[4][NJ] = {};
-      for (int kk = 0; kk < BK; ++kk) {
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = ss[(r0 + i) * L::LDS + kk];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float v = vs[kk * L::LDT + c0 + 8 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], v, acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float alpha = as[r0 + i];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          float* o = os + (r0 + i) * L::LDO + c0 + 8 * j;
-          *o = *o * alpha + acc[i][j];
-        }
-      }
-    }
-  }
-  __syncthreads();
+  const size_t off = static_cast<size_t>(b) * n * rs + h * d;
   float* ob = out + static_cast<size_t>(b) * n * hd + h * d;
-  for (int i = tid; i < BQ * d; i += NT) {
-    const int r = i / d, c = i % d;
-    if (q0 + r < n)
-      ob[static_cast<size_t>(q0 + r) * hd + c] = os[r * L::LDO + c] / ls[r];
-  }
+  attend_f32<DP>(q + off, k + off, v + off, rs, n, d, valid_len, scale, q0,
+                 smem, [&](int r, int c, float val) {
+                   if (q0 + r < n)
+                     ob[static_cast<size_t>(q0 + r) * hd + c] = val;
+                 });
 }
 
-// ---------------------------------------------------------------------------
-// launch
-// ---------------------------------------------------------------------------
-
 template <int DP>
-cudaError_t launch(const void* qkv, void* out, int b, int n, int heads, int d,
-                   int valid_len, float scale, bool bf, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int b, int n, int heads, int d, size_t rs, int valid_len,
+                   float scale, bool bf, cudaStream_t stream) {
   const dim3 grid((n + BQ - 1) / BQ, heads, b);
-  const size_t bytes = bf ? Bf16Smem<DP>::bytes : F32Smem<DP>::bytes;
+  const size_t bytes = bf ? Bf16Tiles<DP>::bytes : F32Tiles<DP>::bytes;
   cudaError_t e;
   if (bf) {
     auto kern = attention_qkv_bf16_kernel<DP>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    kern<<<grid, NT, bytes, stream>>>(static_cast<const bf16*>(qkv),
-                                      static_cast<bf16*>(out), n, heads, d,
-                                      valid_len, scale);
+    kern<<<grid, NT, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out), rs, n, heads, d,
+        valid_len, scale);
   } else {
     auto kern = attention_qkv_f32_kernel<DP>;
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    kern<<<grid, NT, bytes, stream>>>(static_cast<const float*>(qkv),
-                                      static_cast<float*>(out), n, heads, d,
-                                      valid_len, scale);
+    kern<<<grid, NT, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), rs, n, heads,
+        d, valid_len, scale);
   }
   return cudaGetLastError();
-}
-
-cudaError_t dispatch(const void* qkv, void* out, int b, int n, int heads,
-                     int d, int valid_len, float scale, bool bf,
-                     cudaStream_t st) {
-  switch ((d + 15) / 16) {  // head width padded to the mma k-step
-    case 1: return launch<16>(qkv, out, b, n, heads, d, valid_len, scale, bf, st);
-    case 2: return launch<32>(qkv, out, b, n, heads, d, valid_len, scale, bf, st);
-    case 3: return launch<48>(qkv, out, b, n, heads, d, valid_len, scale, bf, st);
-    case 4: return launch<64>(qkv, out, b, n, heads, d, valid_len, scale, bf, st);
-    case 5: return launch<80>(qkv, out, b, n, heads, d, valid_len, scale, bf, st);
-    case 6: return launch<96>(qkv, out, b, n, heads, d, valid_len, scale, bf, st);
-    case 7: return launch<112>(qkv, out, b, n, heads, d, valid_len, scale, bf, st);
-    case 8: return launch<128>(qkv, out, b, n, heads, d, valid_len, scale, bf, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 }  // namespace vda
 
-extern "C" int vda_attention_qkv(const void* qkv, void* out, int b, int n,
-                                 int heads, int d, int valid_len, float scale,
-                                 int is_bf16, void* stream) {
-  if (d % 8 || d <= 0 || d > 128 || valid_len <= 0 || valid_len > n)
+// q, k, v: row 0 of batch 0, 16-byte aligned; token t of batch b at
+// x + (b * n + t) * row_stride (a multiple of 8 elements).  out: contiguous
+// (B, N, H*D).
+extern "C" int vda_attention(const void* q, const void* k, const void* v,
+                             void* out, int b, int n, int heads, int d,
+                             long long row_stride, int valid_len, float scale,
+                             int is_bf16, void* stream) {
+  if (valid_len <= 0 || valid_len > n || row_stride < 1LL * heads * d ||
+      row_stride % 8)
     return cudaErrorInvalidValue;
-  return vda::dispatch(qkv, out, b, n, heads, d, valid_len, scale,
-                       is_bf16 != 0, static_cast<cudaStream_t>(stream));
+  const size_t rs = static_cast<size_t>(row_stride);
+  const bool bf = is_bf16 != 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (vda::flash::padded_width(d)) {
+    case 16: return vda::launch<16>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
+    case 32: return vda::launch<32>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
+    case 48: return vda::launch<48>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
+    case 64: return vda::launch<64>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
+    case 80: return vda::launch<80>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
+    case 96: return vda::launch<96>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
+    case 112: return vda::launch<112>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
+    case 128: return vda::launch<128>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

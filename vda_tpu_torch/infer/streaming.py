@@ -99,11 +99,11 @@ def _leaves(rows, cache_kind: str) -> list:
 
 @torch.no_grad()
 def _first_step(model, frame_u8, net_hw, out_hw, dtype, attn_impl,
-                cache_kind):
+                cache_kind, fuse_proj):
     """First frame: a T=1 forward; returns (depth, the flat cache rows,
     each (BHW, C))."""
     x = preprocess_frames(frame_u8[None], net_hw, dtype=dtype)[None]
-    feats = forward_features(model, x, attn_impl)
+    feats = forward_features(model, x, attn_impl, fuse_proj)
     depth, rows = forward_depth(model, feats, x.shape, cache_kind=cache_kind,
                                 attn_impl=attn_impl)
     return (_to_out_depth(depth, out_hw),
@@ -112,13 +112,13 @@ def _first_step(model, frame_u8, net_hw, out_hw, dtype, attn_impl,
 
 @torch.no_grad()
 def _stream_step(model, frame_u8, buffers, scales, ctx_rows, net_hw, out_hw,
-                 dtype, attn_impl, cache_kind, ctx_kernel):
+                 dtype, attn_impl, cache_kind, ctx_kernel, fuse_proj):
     """One causal step: gathers the 31-row context of every buffer
     (dequantising an int8 cache by its per-row scales), runs the frame
     against it and returns (depth, the flat new rows, each (BHW, 1, C)).
     Reads the buffers and does not write them."""
     x = preprocess_frames(frame_u8[None], net_hw, dtype=dtype)[None]
-    feats = forward_features(model, x, attn_impl)
+    feats = forward_features(model, x, attn_impl, fuse_proj)
     ctx = []
     for i, buf in enumerate(buffers):
         c = buf.index_select(1, ctx_rows).to(dtype)
@@ -165,15 +165,18 @@ class StreamingDepth:
     hidden states as the reference does.  cache_dtype: "bf16" keeps rows in
     the working dtype, "int8" quantises each row with one scale
     (``_write_step_q8``).  ctx_kernel: run the kv cache's attention in K6;
-    it needs cache_kind="kv" and the kernels (attn_impl "auto").  fp32: run
-    the network in fp32 instead of bf16.  attn_impl: "auto" (the kernels) or
-    "plain" (plain PyTorch everywhere)."""
+    it needs cache_kind="kv" and the kernels (attn_impl "auto").  fuse_proj:
+    run the encoder blocks through K7 (JAX's ``VDA_ATTN_FUSE_PROJ=1``); it
+    needs the kernels.  (K10's gate refuses every batch-1 resize, so the
+    stream offers no ``resize_kernel``.)  fp32: run the network in fp32
+    instead of bf16.  attn_impl: "auto" (the kernels) or "plain" (plain
+    PyTorch everywhere)."""
 
     def __init__(self, model: VideoDepthAnything, input_size: int = 518,
                  fp32: bool = False, attn_impl: str = "auto",
                  cache_kind: str = "kv", cache_dtype: str = "bf16",
-                 ctx_kernel: bool = False):
-        use_kernels(attn_impl)  # validates it
+                 ctx_kernel: bool = False, fuse_proj: bool = False):
+        use_kernels(attn_impl, fuse_proj=fuse_proj)  # validates them
         if cache_kind not in ("kv", "h"):
             raise ValueError(f"cache_kind must be kv or h, got {cache_kind!r}")
         if cache_dtype not in ("bf16", "int8"):
@@ -190,6 +193,7 @@ class StreamingDepth:
         self.cache_kind = cache_kind
         self.cache_dtype = cache_dtype
         self.ctx_kernel = bool(ctx_kernel)
+        self.fuse_proj = bool(fuse_proj)
         self.reset()
 
     def reset(self) -> None:
@@ -219,7 +223,7 @@ class StreamingDepth:
             net_hw = compute_resize_hw(h, w, size)
             depth, rows = _first_step(self.model, frame_u8, net_hw, (h, w),
                                       self.dtype, self.attn_impl,
-                                      self.cache_kind)
+                                      self.cache_kind, self.fuse_proj)
             self._init_buffers(rows)
             self.net_hw, self.out_hw = net_hw, (h, w)
             self.id = step_id
@@ -239,7 +243,7 @@ class StreamingDepth:
         depth, rows = _stream_step(
             self.model, frame_u8, self.buffers, self.scales, ctx_rows,
             self.net_hw, self.out_hw, self.dtype, self.attn_impl,
-            self.cache_kind, self.ctx_kernel)
+            self.cache_kind, self.ctx_kernel, self.fuse_proj)
         self._commit(rows, _row(new_id))
         self.id, self.order = step_id, order
         return depth

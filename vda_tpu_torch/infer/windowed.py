@@ -59,12 +59,14 @@ def window_source_indices(n_frames: int) -> np.ndarray:
 
 @torch.no_grad()
 def _window_step(model: VideoDepthAnything, frames_u8, net_hw, out_hw,
-                 dtype, attn_impl: str, micro_batch_size: int):
+                 dtype, attn_impl: str, micro_batch_size: int,
+                 fuse_proj: bool, resize_kernel: bool):
     """(1, T, H, W, 3) uint8 window on the device -> (1, T, outH, outW)
     depths, fp32 if ``dtype`` is fp32 else float16."""
     x = preprocess_frames(frames_u8, net_hw, dtype=dtype)
     depth = forward(model, x, attn_impl=attn_impl,
-                    micro_batch_size=micro_batch_size)
+                    micro_batch_size=micro_batch_size, fuse_proj=fuse_proj,
+                    resize_kernel=resize_kernel)
     # final resize in fp32 (the reference casts before F.interpolate,
     # video_depth.py:111-112), then a float16 transfer unless fp32
     d = resize_bilinear(depth[..., None].float(), out_hw, align_corners=True)
@@ -81,12 +83,18 @@ def infer_video_depth(
     attn_impl: str = "auto",
     micro_batch_size: int = 16,
     progress: Optional[callable] = None,
+    fuse_proj: bool = False,
+    resize_kernel: bool = False,
 ):
     """frames: (N, H, W, 3) uint8 RGB.  Returns (depths (N, H, W) fp32, fps).
 
     Matches reference infer_video_depth (video_depth.py:70-162): aspect-ratio
     guard, window padding, keyframe overlap and scale/shift stitching.
-    ``fp32=False`` runs the network in bfloat16, on the model's device."""
+    ``fp32=False`` runs the network in bfloat16, on the model's device.
+    ``fuse_proj`` (K7 for the encoder blocks) and ``resize_kernel`` (K10 for
+    the tail's upsamples) are the JAX package's ``VDA_ATTN_FUSE_PROJ`` and
+    ``VDA_RESIZE_KERNEL`` switches, off by default as there; both need
+    ``attn_impl="auto"``."""
     cfg = model.cfg
     device = next(model.parameters()).device
     n_frames, frame_h, frame_w = frames.shape[:3]
@@ -99,7 +107,8 @@ def infer_video_depth(
     for w, window in enumerate(idx):
         u8 = torch.from_numpy(frames[window][None]).to(device)
         d = _window_step(model, u8, net_hw, (frame_h, frame_w), dtype,
-                         attn_impl, micro_batch_size)
+                         attn_impl, micro_batch_size, fuse_proj,
+                         resize_kernel)
         host_depths.extend(d[0].cpu().float().numpy())
         if progress is not None:
             progress(w + 1, len(idx))

@@ -7,8 +7,10 @@ norm.  Module names follow the reference state-dict keys.  Tokens are
 (B, N, D) and are not padded: the attention kernel takes N as it is.
 
 ``kernels=True`` routes the attention through K1 where the JAX gate admits
-it (``attention_kernel.use_kernel``) and the LayerNorms through K2; on CPU
-tensors both wrappers run their plain twins.
+it (``attention_kernel.use_kernel``) and the LayerNorms through K2; with
+``fuse_proj=True`` as well, attention, out-projection, LayerScale and
+residual go through K7 where its gate admits them; on CPU tensors every
+wrapper runs its plain twin.
 """
 
 from __future__ import annotations
@@ -20,11 +22,12 @@ import torch
 from torch import nn
 
 from vda_tpu_torch.config import EncoderConfig
-from vda_tpu_torch.ops import attention_kernel
+from vda_tpu_torch.ops import attention_kernel, attn_proj_kernel
 from vda_tpu_torch.ops.layers import (
     Conv2d,
     Linear,
     Norm,
+    cast_once,
     gelu,
     layer_norm,
     linear,
@@ -139,28 +142,44 @@ def _attention(p: Attention, x, heads: int, kernels: bool):
     return linear(p.proj, o)
 
 
-def block_apply(blk: Block, x, cfg: EncoderConfig, kernels: bool):
-    """Pre-norm block: x + ls1*attn(n1(x)); x + ls2*mlp(n2(x))."""
-    h = _attention(blk.attn, layer_norm(blk.norm1, x, kernel=kernels),
-                   cfg.num_heads, kernels)
-    x = x + h * blk.ls1.gamma.to(h.dtype)
+def block_apply(blk: Block, x, cfg: EncoderConfig, kernels: bool,
+                fuse_proj: bool = False):
+    """Pre-norm block: x + ls1*attn(n1(x)); x + ls2*mlp(n2(x)).
+
+    ``fuse_proj`` (with the kernels) runs the first half through K7 where
+    its gate admits the shape (JAX's ``VDA_ATTN_FUSE_PROJ=1`` branch): W in
+    the working dtype, cast once; LayerScale gamma and the projection bias
+    in fp32."""
+    if fuse_proj and kernels and attn_proj_kernel.use_fused_proj(
+            x.shape[1], cfg.num_heads, cfg.head_dim):
+        qkv = linear(blk.attn.qkv, layer_norm(blk.norm1, x, kernel=True))
+        proj = blk.attn.proj
+        gb = torch.stack([blk.ls1.gamma.float(), proj.bias.float()])
+        x = attn_proj_kernel.flash_attention_qkv_proj(
+            qkv, cast_once(proj.weight, qkv.dtype), gb, x, cfg.num_heads,
+            cfg.head_dim ** -0.5)
+    else:
+        h = _attention(blk.attn, layer_norm(blk.norm1, x, kernel=kernels),
+                       cfg.num_heads, kernels)
+        x = x + h * blk.ls1.gamma.to(h.dtype)
     h = layer_norm(blk.norm2, x, kernel=kernels)
     h = linear(blk.mlp.fc2, gelu(linear(blk.mlp.fc1, h)))
     return x + h * blk.ls2.gamma.to(h.dtype)
 
 
 def encode(enc: DinoVisionTransformer, x, tap_idx: Sequence[int],
-           kernels: bool = True):
+           kernels: bool = True, fuse_proj: bool = False):
     """Reference get_intermediate_layers(x, tap_idx, return_class_token=True).
 
     x: (B, H, W, 3) normalised images.  Returns a list of (patch tokens
-    (B, N, D), cls token (B, D)) per tap, the final LayerNorm applied."""
+    (B, N, D), cls token (B, D)) per tap, the final LayerNorm applied.
+    ``fuse_proj``: see ``block_apply``."""
     cfg = enc.cfg
     taps = set(tap_idx)
     h = prepare_tokens(enc, x)
     out = {}
     for i, blk in enumerate(enc.blocks):
-        h = block_apply(blk, h, cfg, kernels)
+        h = block_apply(blk, h, cfg, kernels, fuse_proj)
         if i in taps:
             out[i] = h
     result = []

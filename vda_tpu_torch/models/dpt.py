@@ -80,15 +80,17 @@ def _rcu(p: ResidualConvUnit, x):
     return out + x
 
 
-def _fusion(p: FeatureFusionBlock, x, res=None, size=None):
-    """FeatureFusionBlock (reference util/blocks.py:135-162)."""
+def _fusion(p: FeatureFusionBlock, x, res=None, size=None,
+            resize_kernel: bool = False):
+    """FeatureFusionBlock (reference util/blocks.py:135-162); its upsample
+    goes to K10 where ``resize_kernel`` is set and the gate admits it."""
     out = x
     if res is not None:
         out = out + _rcu(p.resConfUnit1, res)
     out = _rcu(p.resConfUnit2, out)
     if size is None:
         size = (out.shape[1] * 2, out.shape[2] * 2)
-    out = resize_bilinear(out, size, align_corners=True)
+    out = resize_bilinear(out, size, align_corners=True, kernel=resize_kernel)
     return conv2d(p.out_conv, out)
 
 
@@ -109,16 +111,21 @@ def _project_and_resize(head: DPTHeadTemporal, features, patch_hw):
 
 
 def _output_tail(head: DPTHeadTemporal, path_3, layer_2_rn, layer_1_rn,
-                 out_hw):
+                 out_hw, resize_kernel: bool = False):
     """refinenet2/1 and the output convs; the conv2 stack runs in fp32 with
     the conv0 weight rounded to the working dtype, as the JAX island does
-    (reference dpt_temporal.py:98-108)."""
+    (reference dpt_temporal.py:98-108).  ``resize_kernel``: the upsamples
+    the gate admits (vitl: refinenet1's and the one before the island) run
+    in K10."""
     sc = head.scratch
     path_2 = _fusion(sc.refinenet2, path_3, layer_2_rn,
-                     size=tuple(layer_1_rn.shape[1:3]))
-    path_1 = _fusion(sc.refinenet1, path_2, layer_1_rn)
+                     size=tuple(layer_1_rn.shape[1:3]),
+                     resize_kernel=resize_kernel)
+    path_1 = _fusion(sc.refinenet1, path_2, layer_1_rn,
+                     resize_kernel=resize_kernel)
     out = conv2d(sc.output_conv1, path_1, padding=1)
-    out = resize_bilinear(out, out_hw, align_corners=True)
+    out = resize_bilinear(out, out_hw, align_corners=True,
+                          kernel=resize_kernel)
     dtype = out.dtype
     c0, c1 = sc.output_conv2[0], sc.output_conv2[2]
     y = torch.nn.functional.conv2d(
@@ -133,12 +140,14 @@ def dpt_head_temporal_stage(head: DPTHeadTemporal, features, patch_hw,
                             frame_length: int, cfg: ModelConfig,
                             cached_hidden_state_list: Optional[List] = None,
                             cache_kind: str = "h", need_caches: bool = True,
-                            kernels: bool = True):
+                            kernels: bool = True, resize_kernel: bool = False):
     """The cache-coupled front of the head (reference dpt_temporal.py:53-123
     up to refinenet3): tap projections, the four motion modules, the rn
     convs and refinenets 4/3.  ``cached_hidden_state_list`` holds each
     module's contexts in order (two a module); ``cache_kind="kv"`` asks for
-    (k, v) cache rows.  Returns ((path_3, l2, l1), new cache rows)."""
+    (k, v) cache rows; ``resize_kernel`` lets the refinenets' upsamples take
+    K10 where its gate admits them.  Returns ((path_3, l2, l1), new cache
+    rows)."""
     sc = head.scratch
     mms = head.motion_modules
     n_cache = 0
@@ -166,38 +175,57 @@ def dpt_head_temporal_stage(head: DPTHeadTemporal, features, patch_hw,
     l3 = conv2d(sc.layer3_rn, layer_3, padding=1)
     l4 = conv2d(sc.layer4_rn, layer_4, padding=1)
     path_4, h2 = temporal(2, _fusion(sc.refinenet4, l4,
-                                     size=tuple(l3.shape[1:3])))
+                                     size=tuple(l3.shape[1:3]),
+                                     resize_kernel=resize_kernel))
     path_3, h3 = temporal(3, _fusion(sc.refinenet3, path_4, l3,
-                                     size=tuple(l2.shape[1:3])))
+                                     size=tuple(l2.shape[1:3]),
+                                     resize_kernel=resize_kernel))
     return (path_3, l2, l1), h0 + h1 + h2 + h3
 
 
+def tail_chunks(batch: int, micro_batch_size: int) -> List[int]:
+    """Frames in each chunk of the tail, by the JAX rule
+    (``vda_tpu/models/dpt.py`` ``dpt_head_temporal_tail``): the whole batch
+    at once when it is no larger than ``micro_batch_size`` or not a multiple
+    of it, else chunks of ``micro_batch_size``."""
+    mb = micro_batch_size
+    if batch <= mb or batch % mb:
+        return [batch]
+    return [mb] * (batch // mb)
+
+
 def dpt_head_temporal_tail(head: DPTHeadTemporal, stage_out, patch_hw,
-                           micro_batch_size: int = 4):
+                           micro_batch_size: int = 4,
+                           resize_kernel: bool = False):
     """The per-frame back of the head (reference dpt_temporal.py:96-123):
-    refinenets 2/1 and the output convs, ``micro_batch_size`` frames at a
-    time.  Returns depth (B*T, 14*ph, 14*pw, 1)."""
+    refinenets 2/1 and the output convs over the chunks of ``tail_chunks``.
+    Returns depth (B*T, 14*ph, 14*pw, 1)."""
     path_3, l2, l1 = stage_out
     ph, pw = patch_hw
     out_hw = (ph * 14, pw * 14)
-    mb = micro_batch_size
-    return torch.cat([_output_tail(head, path_3[i:i + mb], l2[i:i + mb],
-                                   l1[i:i + mb], out_hw)
-                      for i in range(0, l1.shape[0], mb)])
+    out, i = [], 0
+    for n in tail_chunks(l1.shape[0], micro_batch_size):
+        out.append(_output_tail(head, path_3[i:i + n], l2[i:i + n],
+                                l1[i:i + n], out_hw, resize_kernel))
+        i += n
+    return torch.cat(out)
 
 
 def dpt_head_temporal_apply(head: DPTHeadTemporal, features, patch_hw,
                             frame_length: int, cfg: ModelConfig,
                             cached_hidden_state_list: Optional[List] = None,
                             micro_batch_size: int = 4, cache_kind: str = "h",
-                            need_caches: bool = True, kernels: bool = True):
+                            need_caches: bool = True, kernels: bool = True,
+                            resize_kernel: bool = False):
     """features: four (tokens (B*T, N, D), cls) taps, T == frame_length new
     frames.  Returns (depth (B*T, 14*ph, 14*pw, 1), new cache rows, two a
     motion module).  ``need_caches=False`` (offline windows) lets K3/K4
-    take the blocks they admit, which return no cache rows."""
+    take the blocks they admit, which return no cache rows;
+    ``resize_kernel`` sends the upsamples K10's gate admits to K10."""
     stage_out, caches = dpt_head_temporal_stage(
         head, features, patch_hw, frame_length, cfg,
         cached_hidden_state_list=cached_hidden_state_list,
-        cache_kind=cache_kind, need_caches=need_caches, kernels=kernels)
+        cache_kind=cache_kind, need_caches=need_caches, kernels=kernels,
+        resize_kernel=resize_kernel)
     return dpt_head_temporal_tail(head, stage_out, patch_hw,
-                                  micro_batch_size), caches
+                                  micro_batch_size, resize_kernel), caches

@@ -37,8 +37,14 @@ _U64 = ctypes.c_ulonglong
 _I64 = ctypes.c_longlong
 # C signatures of the entry points (csrc/*.cu, ``extern "C"``)
 _SIGNATURES = {
-    # qkv, out, B, N, H, D, valid_len, scale, is_bf16, stream
-    "vda_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, B, N, H, D, row_stride, valid_len, scale, is_bf16, stream
+    "vda_attention": [_P] * 4 + [_I] * 4 + [_I64, _I, _F, _I, _P],
+    # qkv, w, gamma_bias, x, out, ws, B, N, H, D, valid_len, scale, is_bf16,
+    # stream
+    "vda_attention_proj": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    # x, out, itab, ftab, B, OH, OW, C, block_rows, stride_b, stride_h,
+    # stride_w, stream
+    "vda_resize_bilinear": [_P] * 4 + [_I] * 5 + [_I64] * 3 + [_P],
     # BD, T, C, heads, is_bf16, full, *workspace_bytes (out)
     "vda_temporal_workspace": [_I] * 6 + [ctypes.POINTER(_U64)],
     # h, out, pe, ln_w, ln_b, wq, wk, wv, wout, bout, ws, ws_bytes, BD, T,

@@ -1,14 +1,26 @@
-"""Plain multi-head attention, PyTorch.
+"""Multi-head attention, PyTorch: the plain form and its dispatch.
 
-Counterpart of ``vda_tpu/ops/attention.py`` ``_xla_attention``: the scores
-are fp32 (the products of the input values, summed in fp32), the softmax is
-fp32, and the probabilities are cast back to the input dtype before the
-value product.  Every kernel's plain twin that needs attention uses this.
+Counterpart of ``vda_tpu/ops/attention.py``.  ``attention_plain`` is
+``_xla_attention``: the scores are fp32 (the products of the input values,
+summed in fp32), the softmax is fp32, and the probabilities are cast back to
+the input dtype before the value product.  Every kernel's plain twin that
+needs attention uses it.
+
+``dot_product_attention`` (over (B, N, H, D)) and ``packed_self_attention``
+(over head-packed (B, N, H·D)) pick the implementation as the JAX functions
+do: ``impl="plain"`` (JAX's ``"xla"``) always runs ``attention_plain``;
+``impl="auto"`` runs K9 (``attention_kernel.flash_attention_packed``) where
+the JAX gate admits the shape (at least 512 tokens, query and key lengths
+equal, head width a multiple of 8) and the kernel takes its head width (at
+most 128), and ``attention_plain`` elsewhere.  On CPU tensors K9's wrapper
+runs its plain twin.
 """
 
 from __future__ import annotations
 
 import torch
+
+IMPLS = ("auto", "plain")
 
 
 def attention_plain(q, k, v, scale: float, valid_len: int | None = None):
@@ -20,3 +32,47 @@ def attention_plain(q, k, v, scale: float, valid_len: int | None = None):
         logits[..., valid_len:] = float("-inf")
     probs = torch.softmax(logits, dim=-1).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _use_kernel(impl: str, nq: int, nk: int, d: int) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl == "auto" and nq >= 512 and nq == nk and d % 8 == 0 \
+        and d <= 128
+
+
+def dot_product_attention(q, k, v, scale: float | None = None,
+                          impl: str = "auto"):
+    """Scaled dot-product attention over (B, N, H, D) tensors."""
+    from vda_tpu_torch.ops import attention_kernel
+
+    d = q.shape[-1]
+    if scale is None:
+        scale = d ** -0.5
+    if _use_kernel(impl, q.shape[1], k.shape[1], d):
+        return attention_kernel.flash_attention(q, k, v, scale)
+    return attention_plain(q, k, v, scale)
+
+
+def packed_self_attention(q, k, v, heads: int, scale: float | None = None,
+                          impl: str = "auto", segment_lengths=None):
+    """Self-attention over head-packed (B, N, H·D) tensors.
+
+    ``segment_lengths`` (block-diagonal attention over packed segments, the
+    JAX package's NestedTensorBlock path) is K8's function, which comes with
+    the training slice: it raises."""
+    from vda_tpu_torch.ops import attention_kernel
+
+    if segment_lengths is not None:
+        raise NotImplementedError(
+            "segment_lengths: block-diagonal attention over packed segments "
+            "is K8 (segment_attention), not ported yet: it comes with the "
+            "training slice")
+    b, n, hd = q.shape
+    d = hd // heads
+    if scale is None:
+        scale = d ** -0.5
+    if _use_kernel(impl, n, k.shape[1], d):
+        return attention_kernel.flash_attention_packed(q, k, v, heads, scale)
+    qh, kh, vh = (t.reshape(b, -1, heads, d) for t in (q, k, v))
+    return attention_plain(qh, kh, vh, scale).reshape(b, n, hd)

@@ -1,24 +1,29 @@
-"""K1: self-attention read in place from the fused qkv projection, CUDA C++.
+"""K1 and K9: multi-head self-attention over head-packed q, k and v, CUDA C++.
 
-Replaces ``vda_tpu/ops/pallas_attention.py`` ``flash_attention_qkv`` (its
+K1 replaces ``vda_tpu/ops/pallas_attention.py`` ``flash_attention_qkv`` (its
 ``pl.pallas_call`` runs ``_attn_kernel_packed``), the encoder attention of
 every DINOv2 block: vitl runs it at (B·T, N, 3·H·D) = (32, 1370, 3072), 16
-heads of 64.
+heads of 64.  K9 replaces ``flash_attention_packed``, the same function over
+three separate (B, N, H·D) tensors, which ``ops/attention.py`` and the
+generic attention library reach for N >= 512.
 
-What bounds it on the H100: the (N, N) scores.  Materialised in fp32 they
+What bounds them on the H100: the (N, N) scores.  Materialised in fp32 they
 are 32·16·1370² · 4 B = 3.8 GB a layer, written and re-read several times by
 the plain form.  The TPU kernel kept a whole head's K and V resident in VMEM
 (~350 KB at N=1370), which does not fit the 227 KB a block may hold here, so
-the kernel (``csrc/attention_qkv.cu``) is a flash attention: one block per
-(batch, head, 64-row query tile) walks 64-row K/V tiles, double-buffered in
-shared memory by cp.async, with an online softmax (fp32 running max and sum,
-fp32 accumulator, normalised once at the end).  In bf16 each warp keeps its
-16 query rows' scores, probabilities and output accumulator in registers
-and runs the products on the tensor cores (``mma.sync`` m16n8k16, fp32
+the kernel (``csrc/attention_qkv.cu`` with the loop of
+``csrc/flash_attention.cuh``) is a flash attention: one block per (batch,
+head, 64-row query tile) walks 64-row K/V tiles, double-buffered in shared
+memory by cp.async, with an online softmax (fp32 running max and sum, fp32
+accumulator, normalised once at the end).  In bf16 each warp keeps its 16
+query rows' scores, probabilities and output accumulator in registers and
+runs the products on the tensor cores (``mma.sync`` m16n8k16, fp32
 accumulate, operands by ``ldmatrix``): scores never leave registers.  fp32
-input takes a scalar-FMA path through shared memory.  q, k and v are read
-at column offsets 0, H·D and 2·H·D of the fused tensor, so nothing is copied
-or transposed first; N is taken unpadded and the ragged last K tile masked.
+input takes a scalar-FMA path through shared memory.  The one C entry point
+takes a q, a k and a v pointer and one row stride: K1 passes column offsets
+0, H·D and 2·H·D of the fused tensor with a stride of 3·H·D, so nothing is
+copied or transposed first; K9 passes its three tensors.  N is taken
+unpadded and the ragged last K tile masked.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 from vda_tpu_torch.ops import _build
 from vda_tpu_torch.ops.attention import attention_plain
 
-launches = 0  # kernel launches made by ``flash_attention_qkv``
+launches = 0         # K1 launches made by ``flash_attention_qkv``
+launches_packed = 0  # K9 launches made by ``flash_attention_packed``
 
 
 def kernel_supported(heads: int, dh: int) -> bool:
@@ -45,45 +51,95 @@ def use_kernel(n: int, dh: int) -> bool:
 
 def flash_attention_qkv_reference(qkv, heads: int, scale: float,
                                   valid_len: int | None = None):
-    """Plain twin: fp32-statistics softmax(Q K^T · scale) V over the fused
-    (B, N, 3·H·D) tensor.  Returns (B, N, H·D)."""
-    b, n, hd3 = qkv.shape
-    hd = hd3 // 3
-    q, k, v = (t.reshape(b, n, heads, hd // heads)
-               for t in qkv.split(hd, dim=-1))
-    return attention_plain(q, k, v, scale, valid_len).reshape(b, n, hd)
+    """Plain twin of K1: fp32-statistics softmax(Q K^T · scale) V over the
+    fused (B, N, 3·H·D) tensor.  Returns (B, N, H·D)."""
+    hd = qkv.shape[-1] // 3
+    return flash_attention_packed_reference(*qkv.split(hd, dim=-1), heads,
+                                            scale, valid_len)
+
+
+def flash_attention_packed_reference(q, k, v, heads: int, scale: float,
+                                     valid_len: int | None = None):
+    """Plain twin of K9 over (B, N, H·D) q, k and v.  Returns (B, N, H·D)."""
+    b, n, hd = q.shape
+    qh, kh, vh = (t.reshape(b, n, heads, hd // heads) for t in (q, k, v))
+    return attention_plain(qh, kh, vh, scale, valid_len).reshape(b, n, hd)
+
+
+def _launch(name, q, k, v, heads, scale, valid_len, row_stride):
+    b, n, hd = q.shape
+    if valid_len is None:
+        valid_len = n
+    if hd % heads or not kernel_supported(heads, hd // heads):
+        raise ValueError(f"{name}: unsupported shape {tuple(q.shape)} with "
+                         f"{heads} heads")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: unsupported dtype {q.dtype}")
+    if not 0 < valid_len <= n:
+        raise ValueError(f"{name}: valid_len {valid_len} outside (0, {n}]")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(f"{name} has no backward yet")
+    out = torch.empty(b, n, hd, device=q.device, dtype=q.dtype)
+    err = _build.library().vda_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
+        heads, hd // heads, row_stride, valid_len, float(scale),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+    _build.check(err, "vda_attention")
+    return out
 
 
 def flash_attention_qkv(qkv, heads: int, scale: float,
                         valid_len: int | None = None):
-    """Attention over the fused [q | k | v] tensor (B, N, 3·H·D).  Keys at or
-    beyond ``valid_len`` are masked.  Returns (B, N, H·D) in qkv's dtype."""
+    """K1: attention over the fused [q | k | v] tensor (B, N, 3·H·D).  Keys
+    at or beyond ``valid_len`` are masked.  Returns (B, N, H·D) in qkv's
+    dtype."""
     global launches
-    b, n, hd3 = qkv.shape
-    if valid_len is None:
-        valid_len = n
     if qkv.device.type == "cpu":
         return flash_attention_qkv_reference(qkv, heads, scale, valid_len)
     if qkv.device.type != "cuda":
-        raise ValueError(f"flash_attention_qkv: unsupported device {qkv.device}")
-    if hd3 % (3 * heads) or not kernel_supported(heads, hd3 // (3 * heads)):
+        raise ValueError(f"flash_attention_qkv: unsupported device "
+                         f"{qkv.device}")
+    if qkv.shape[-1] % 3:
         raise ValueError(f"flash_attention_qkv: unsupported shape "
-                         f"{tuple(qkv.shape)} with {heads} heads")
-    if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"flash_attention_qkv: unsupported dtype {qkv.dtype}")
+                         f"{tuple(qkv.shape)}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("flash_attention_qkv: qkv must be contiguous and "
                          "16-byte aligned")
-    if not 0 < valid_len <= n:
-        raise ValueError(f"flash_attention_qkv: valid_len {valid_len} "
-                         f"outside (0, {n}]")
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError("flash_attention_qkv has no backward yet")
-    out = torch.empty(b, n, hd3 // 3, device=qkv.device, dtype=qkv.dtype)
-    err = _build.library().vda_attention_qkv(
-        qkv.data_ptr(), out.data_ptr(), b, n, heads, hd3 // (3 * heads),
-        valid_len, float(scale), int(qkv.dtype == torch.bfloat16),
-        _build.stream_ptr(qkv))
-    _build.check(err, "vda_attention_qkv")
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    out = _launch("flash_attention_qkv", q, k, v, heads, scale, valid_len,
+                  qkv.shape[-1])
     launches += 1
     return out
+
+
+def flash_attention_packed(q, k, v, heads: int, scale: float):
+    """K9: self-attention over head-packed (B, N, H·D) q, k and v of one
+    shape and one layout: unit column stride, rows ``row_stride`` apart and
+    batches N rows apart (contiguous tensors, or column slices of one fused
+    projection), 16-byte aligned.  Returns (B, N, H·D) in q's dtype."""
+    global launches_packed
+    if q.device.type == "cpu":
+        return flash_attention_packed_reference(q, k, v, heads, scale)
+    name = "flash_attention_packed"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    b, n, hd = q.shape
+    rs = q.stride(1)
+    for t in (q, k, v):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or t.stride() != (n * rs, rs, 1) or t.data_ptr() % 16
+                or rs % 8):
+            raise ValueError(f"{name}: q, k and v must share one shape, "
+                             "dtype and row layout, 16-byte aligned")
+    out = _launch(name, q, k, v, heads, scale, None, rs)
+    launches_packed += 1
+    return out
+
+
+def flash_attention(q, k, v, scale: float):
+    """K9 over (B, N, H, D) tensors: the reshape wrapper of
+    ``flash_attention_packed`` (``pallas_attention.flash_attention``)."""
+    b, n, h, d = q.shape
+    out = flash_attention_packed(*(t.reshape(b, n, h * d) for t in (q, k, v)),
+                                 heads=h, scale=scale)
+    return out.reshape(b, n, h, d)

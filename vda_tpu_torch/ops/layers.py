@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.weak import WeakIdKeyDictionary
 
 from vda_tpu_torch.ops import norm_kernel
 
@@ -61,6 +62,22 @@ class Norm(nn.Module):
         super().__init__()
         self.weight = _empty(dim, device=device)
         self.bias = _empty(dim, device=device)
+
+
+_casts = WeakIdKeyDictionary()  # parameter -> (its state, its cast copy)
+
+
+def cast_once(p, dtype):
+    """Parameter ``p`` as a contiguous ``dtype`` tensor, for a kernel that
+    takes its weights in the working dtype.  A cast copy is made once and
+    reused until ``p`` changes, in place or by reallocation."""
+    if p.dtype == dtype and p.is_contiguous():
+        return p.detach()
+    state = (dtype, p.device, p.data_ptr(), p._version)
+    hit = _casts.get(p)
+    if hit is None or hit[0] != state:
+        hit = _casts[p] = (state, p.detach().to(dtype).contiguous())
+    return hit[1]
 
 
 # ---------------------------------------------------------------------------

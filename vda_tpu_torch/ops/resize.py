@@ -11,6 +11,8 @@ applied as two einsums, H then W, exactly as ``_apply_separable`` does:
 
 fp32 input contracts in fp32; bf16 input contracts with bf16 matrices and
 fp32 accumulation, rounding between the two passes, as on the JAX side.
+The two-tap tables ``_lerp_tables`` (a copy too) feed K10
+(``resize_kernel.py``), which ``resize_bilinear(kernel=True)`` reaches.
 """
 
 from __future__ import annotations
@@ -89,13 +91,33 @@ def _apply_separable(x, mh: np.ndarray, mw: np.ndarray):
     return y.to(x.dtype)
 
 
-def resize_bilinear(x, out_hw, align_corners: bool = True):
+@functools.lru_cache(maxsize=256)
+def _lerp_tables(in_size: int, out_size: int, align_corners: bool,
+                 scale: float | None = None):
+    """(i0, i1, w1) gather/lerp tables for one axis (same math as
+    _linear_matrix, two-tap form)."""
+    src = _src_coords(in_size, out_size, align_corners, scale)
+    src = np.clip(src, 0.0, in_size - 1)
+    i0 = np.clip(np.floor(src).astype(np.int32), 0, in_size - 1)
+    i1 = np.clip(i0 + 1, 0, in_size - 1)
+    w1 = (src - i0).astype(np.float32)
+    return i0, i1, w1
+
+
+def resize_bilinear(x, out_hw, align_corners: bool = True,
+                    kernel: bool = False):
     """Bilinear resize of (..., H, W, C) input (torch F.interpolate
-    semantics with align_corners=True)."""
+    semantics with align_corners=True).  ``kernel=True`` sends the resizes
+    that ``resize_kernel.supported`` admits to K10, as JAX's
+    ``VDA_RESIZE_KERNEL=1`` does."""
+    from vda_tpu_torch.ops import resize_kernel
+
     h, w = x.shape[-3], x.shape[-2]
     oh, ow = out_hw
     if (oh, ow) == (h, w) and align_corners:
         return x
+    if kernel and resize_kernel.supported(x, out_hw, align_corners, None):
+        return resize_kernel.resize_bilinear_fused(x, out_hw)
     return _apply_separable(x, _linear_matrix(h, oh, align_corners),
                             _linear_matrix(w, ow, align_corners))
 

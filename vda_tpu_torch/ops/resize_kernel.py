@@ -1,0 +1,135 @@
+"""K10: bf16 NHWC bilinear upsample with align_corners=True, CUDA C++.
+
+Replaces ``vda_tpu/ops/pallas_resize.py`` ``resize_bilinear_fused`` (its
+``pl.pallas_call`` runs ``_resize_kernel``), the decoder tail's two largest
+resizes, which the JAX package sends to it with ``VDA_RESIZE_KERNEL=1`` and
+the port with ``resize_kernel=True``: vitl (16, 148, 148, 256) -> (296,
+296) and (16, 296, 296, 128) -> (518, 518), twice a window each (two tail
+chunks of 16 frames).
+
+The function: output row i is the lerp r0·(1 − t) + r1·t of input rows i0
+and i1 in fp32, with t the fp32 ``w1`` of ``_lerp_tables`` (not rounded),
+rounded to bf16; output column j sums that row at its two taps with the
+bf16-rounded weights of ``_linear_matrix`` (one tap of weight 1 at the
+clipped edge) in fp32 and rounds once.  The TPU ran the column pass as an
+MXU matmul with that (W_out, W_in) matrix; its two nonzeros a row are read
+directly here, and the sum of two exact bf16·bf16 products has one rounding
+in any order, so kernel, twin and the TPU kernel agree bit for bit.
+
+What bounds it on the H100: bytes (vitl 0.27 and 0.44 ms at 3.35 TB/s).
+The kernel (``csrc/resize_bilinear.cu``) has the TPU kernel's grid, one
+block per batch row and block of ``_pick_block`` output rows, and reads
+each output row's two input rows from the row taps of ``_lerp_tables`` (the
+TPU kernel's input band per row block was a VMEM tiling, not needed here);
+each thread makes 8 channels of one output pixel from four 16-byte input
+reads, so the (B, H_out, W_in, C) intermediate of the separable form never
+exists.  The input is read through its strides; the tables live on the
+device, made once per shape.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from vda_tpu_torch.ops import _build
+from vda_tpu_torch.ops.resize import _lerp_tables, _linear_matrix
+
+launches = 0  # kernel launches made by ``resize_bilinear_fused``
+
+
+def _pick_block(out_h: int):
+    """Copy of ``pallas_resize._pick_block``: output rows a block makes."""
+    for br in (16, 14, 8, 7):
+        if out_h % br == 0:
+            return br
+    return None
+
+
+def supported(x, out_hw, align_corners: bool, scale) -> bool:
+    """The JAX gate (``pallas_resize.supported`` without its environment
+    switch): bf16 NHWC, align_corners, no explicit scale, a batch of at
+    least 8, channels % 128, upsampling on both axes, and a row block that
+    divides H_out.  The kernel takes every shape it admits."""
+    if scale is not None or not align_corners:
+        return False
+    if x.dim() != 4 or x.dtype != torch.bfloat16 or x.shape[0] < 8:
+        return False
+    h, w, c = x.shape[1], x.shape[2], x.shape[3]
+    oh, ow = out_hw
+    if c % 128 != 0 or oh < h or ow < w:
+        return False
+    return _pick_block(oh) is not None
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(h: int, w: int, oh: int, ow: int):
+    """Host tables: (int32 [i0 | i1 | j0 | j1], fp32 [w1 | m0 | m1]) with
+    i0/i1/w1 the row taps and lerp weight of ``_lerp_tables``, j0/j1 the
+    column taps and m0/m1 their bf16-rounded matrix weights (m1 = 0 where
+    the two taps merge)."""
+    i0, i1, w1 = _lerp_tables(h, oh, True, None)
+    j0, j1, _ = _lerp_tables(w, ow, True, None)
+    m = torch.from_numpy(_linear_matrix(w, ow, True)).to(torch.bfloat16)
+    m = m.float().numpy()
+    cols = np.arange(ow)
+    m0 = m[cols, j0]
+    m1 = np.where(j1 != j0, m[cols, j1], 0.0)
+    itab = np.concatenate([i0, i1, j0, j1]).astype(np.int32)
+    ftab = np.concatenate([w1, m0, m1]).astype(np.float32)
+    return itab, ftab
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(h: int, w: int, oh: int, ow: int, device):
+    itab, ftab = _tables(h, w, oh, ow)
+    return (torch.from_numpy(itab).to(device),
+            torch.from_numpy(ftab).to(device))
+
+
+def resize_bilinear_fused_reference(x, out_hw):
+    """Plain twin over (B, H, W, C): the same taps and roundings by tensor
+    ops (each op rounds to fp32, as the kernel's __fmul_rn/__fadd_rn do)."""
+    h, w = x.shape[1], x.shape[2]
+    oh, ow = out_hw
+    itab, ftab = (torch.from_numpy(a).to(x.device)
+                  for a in _tables(h, w, oh, ow))
+    i0, i1, j0, j1 = itab.long().split([oh, oh, ow, ow])
+    w1, m0, m1 = ftab.split([oh, ow, ow])
+    t = w1[:, None, None]
+    rows = (x[:, i0].float() * (1.0 - t) + x[:, i1].float() * t)
+    rows = rows.to(torch.bfloat16).float()
+    return (m0[:, None] * rows[:, :, j0]
+            + m1[:, None] * rows[:, :, j1]).to(x.dtype)
+
+
+def resize_bilinear_fused(x, out_hw):
+    """K10: (B, H, W, C) bf16 -> (B, H_out, W_out, C) bf16, align_corners.
+    The caller checks ``supported`` first (on the card the wrapper raises
+    for a shape it refuses)."""
+    global launches
+    if x.device.type == "cpu":
+        return resize_bilinear_fused_reference(x, out_hw)
+    name = "resize_bilinear_fused"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not supported(x, out_hw, True, None):
+        raise ValueError(f"{name}: unsupported input {tuple(x.shape)} "
+                         f"{x.dtype} -> {tuple(out_hw)}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(f"{name} has no backward yet")
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) \
+            or x.data_ptr() % 16:
+        x = x.contiguous()
+    itab, ftab = _device_tables(h, w, oh, ow, x.device)
+    out = torch.empty(b, oh, ow, c, device=x.device, dtype=x.dtype)
+    err = _build.library().vda_resize_bilinear(
+        x.data_ptr(), out.data_ptr(), itab.data_ptr(), ftab.data_ptr(), b, oh,
+        ow, c, _pick_block(oh), *x.stride()[:3], _build.stream_ptr(x))
+    _build.check(err, "vda_resize_bilinear")
+    launches += 1
+    return out

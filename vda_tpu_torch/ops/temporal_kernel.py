@@ -23,7 +23,7 @@ Where one sequence's buffers do not fit shared memory (fp32 at C=1024, T
 above 32 at C=1024) the largest move to a device-memory workspace; the C
 side alone plans that layout (``plan`` in the .cu file), and this wrapper
 asks it for the workspace size.  The weights are cast to the working dtype
-once per parameter and reused (``_weight``).
+once per parameter and reused (``layers.cast_once``).
 
 Rounding follows the TPU kernel (``pallas_temporal.py`` module docstring):
 LayerNorm stats fp32 (eps 1e-5), the APE added after the norm in the working
@@ -37,11 +37,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from vda_tpu_torch.ops import _build
 from vda_tpu_torch.ops.attention import attention_plain
-from vda_tpu_torch.ops.layers import gelu, layer_norm, linear
+from vda_tpu_torch.ops.layers import cast_once, gelu, layer_norm, linear
 
 launches_block = 0  # K3 launches made by ``temporal_block_fused``
 launches_attn = 0   # K4 launches made by ``attention_block_fused``
@@ -107,21 +106,6 @@ def temporal_block_reference(block, h, pe_table, heads: int,
 # wrappers
 # ---------------------------------------------------------------------------
 
-_casts = WeakIdKeyDictionary()  # parameter -> (its state, its cast copy)
-
-
-def _weight(p, dtype):
-    """Parameter ``p`` as a contiguous ``dtype`` tensor.  A cast copy is made
-    once and reused until ``p`` changes, in place or by reallocation."""
-    if p.dtype == dtype and p.is_contiguous():
-        return p.detach()
-    state = (dtype, p.device, p.data_ptr(), p._version)
-    hit = _casts.get(p)
-    if hit is None or hit[0] != state:
-        hit = _casts[p] = (state, p.detach().to(dtype).contiguous())
-    return hit[1]
-
-
 def _check(name, h, pe_table):
     t, c = h.shape[1:]
     if h.device.type != "cuda":
@@ -164,9 +148,9 @@ def _ptrs(name, h, tensors):
 def _attn_tensors(attn, norm, dtype):
     f32 = torch.float32
     mats = (attn.to_q, attn.to_k, attn.to_v, attn.to_out[0])
-    return [_weight(norm.weight, f32), _weight(norm.bias, f32),
-            *(_weight(m.weight, dtype) for m in mats),
-            _weight(attn.to_out[0].bias, f32)]
+    return [cast_once(norm.weight, f32), cast_once(norm.bias, f32),
+            *(cast_once(m.weight, dtype) for m in mats),
+            cast_once(attn.to_out[0].bias, f32)]
 
 
 def attention_block_fused(attn, norm, h, pe_table, heads: int):
@@ -210,10 +194,10 @@ def temporal_block_fused(block, h, pe_table, heads: int):
     for attn, norm in zip(block.attention_blocks, block.norms):
         args += _attn_tensors(attn, norm, h.dtype)
     proj, ffo = block.ff.net[0].proj, block.ff.net[2]
-    args += [_weight(block.ff_norm.weight, f32),
-             _weight(block.ff_norm.bias, f32), _weight(proj.weight, h.dtype),
-             _weight(proj.bias, f32), _weight(ffo.weight, h.dtype),
-             _weight(ffo.bias, f32)]
+    args += [cast_once(block.ff_norm.weight, f32),
+             cast_once(block.ff_norm.bias, f32),
+             cast_once(proj.weight, h.dtype), cast_once(proj.bias, f32),
+             cast_once(ffo.weight, h.dtype), cast_once(ffo.bias, f32)]
     out = torch.empty_like(h)
     err = _build.library().vda_temporal_block(
         h.data_ptr(), out.data_ptr(), *_ptrs(name, h, args),

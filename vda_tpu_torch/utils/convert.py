@@ -37,6 +37,29 @@ def load_state_dict_numpy(model: VideoDepthAnything,
     return model
 
 
+def load_cross_attention_numpy(module: torch.nn.Module,
+                               params: Dict) -> torch.nn.Module:
+    """Load the JAX package's ``init_cross_attention`` or
+    ``init_feed_forward`` params (numpy or JAX arrays; linears {"w" (in,
+    out), "b"}, group_norm {"scale", "bias"}) into a
+    ``models.cross_attention`` module (linear weights (out, in)), strictly:
+    every parameter of the module is given and every param is used."""
+    device = next(module.parameters()).device
+    sd = {}
+    for name, p in params.items():
+        if name == "group_norm":
+            sd["group_norm.weight"] = p["scale"]
+            sd["group_norm.bias"] = p["bias"]
+            continue
+        sd[f"{name}.weight"] = np.asarray(p["w"]).T
+        if "b" in p:
+            sd[f"{name}.bias"] = p["b"]
+    module.load_state_dict(
+        {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+         for k, v in sd.items()}, strict=True)
+    return module
+
+
 @torch.no_grad()
 def init_random(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> VideoDepthAnything:

@@ -18,6 +18,10 @@ power limit, then three JSON lines:
 - ``profile_end_to_end``: the same for ``infer_video_depth`` on a
   ``frames``-frame 518x518 video.
 
+With ``--fused`` the windows run ``fuse_proj=True, resize_kernel=True``
+(K7 and K10) and the streams ``fuse_proj=True``; compare it with a run
+without, in one call.
+
 With ``--stream`` it measures causal streaming instead (bf16, 518x518
 frames), once without and once with ``ctx_kernel``:
 
@@ -47,7 +51,9 @@ import torch
 
 # kind -> substrings of the kernel name; the first kind that matches wins
 KINDS = (
-    ("K1 attention_qkv", ("attention_qkv_",)),
+    ("K7 attention_proj", ("attention_proj_",)),
+    ("K10 resize_bilinear", ("resize_bilinear_kernel",)),
+    ("K1 attention_qkv", ("attention_qkv_",)),  # K9 launches it too
     ("K2 layer_norm", ("_ln_fwd",)),
     ("K3 temporal_block", ("temporal_block_kernel",)),
     ("K4 attention_block", ("attention_block_kernel",)),
@@ -125,8 +131,8 @@ def _mean_ms(spans, n: int) -> dict:
     return ms
 
 
-def layer_times(model, x, reps: int = 5) -> dict:
-    """Mean milliseconds a window ``forward`` spends in each layer."""
+def layer_times(model, x, reps: int = 5, **kw) -> dict:
+    """Mean milliseconds a window ``forward(**kw)`` spends in each layer."""
     from vda_tpu_torch.models import vda
 
     spans = []
@@ -137,11 +143,11 @@ def layer_times(model, x, reps: int = 5) -> dict:
                 spans, getattr(vda, name), lambda label=label: label)))
         _head_spans(stack, spans)
         forward = _timed(spans, vda.forward, lambda: "forward")
-        forward(model, x)  # warm-up
+        forward(model, x, **kw)  # warm-up
         torch.cuda.synchronize()
         spans.clear()
         for _ in range(reps):
-            forward(model, x)
+            forward(model, x, **kw)
         torch.cuda.synchronize()
     ms = _mean_ms(spans, reps)
     ms["forward.rest"] = ms["forward"] - ms["encoder"] - ms["head"]
@@ -149,7 +155,7 @@ def layer_times(model, x, reps: int = 5) -> dict:
 
 
 def stream_layer_times(model, frames, ctx_kernel: bool,
-                       warm: int = 12) -> dict:
+                       warm: int = 12, fuse_proj: bool = False) -> dict:
     """Mean milliseconds a steady ``StreamingDepth`` step (steps ``warm``
     and later) spends in each layer."""
     import vda_tpu_torch as vt
@@ -164,7 +170,8 @@ def stream_layer_times(model, frames, ctx_kernel: bool,
             stack.enter_context(_patched(streaming, name, _timed(
                 spans, getattr(streaming, name), lambda label=label: label)))
         _head_spans(stack, spans)
-        stream = vt.StreamingDepth(model, ctx_kernel=ctx_kernel)
+        stream = vt.StreamingDepth(model, ctx_kernel=ctx_kernel,
+                                   fuse_proj=fuse_proj)
         for i, f in enumerate(frames):
             if i == warm:
                 torch.cuda.synchronize()
@@ -218,7 +225,11 @@ def main(argv=None) -> int:
                     help="video length (default 54; 48 with --stream)")
     ap.add_argument("--stream", action="store_true",
                     help="measure causal streaming instead of windows")
+    ap.add_argument("--fused", action="store_true",
+                    help="switch on K7 (and K10 for windows)")
     args = ap.parse_args(argv)
+    win_kw = dict(fuse_proj=True, resize_kernel=True) if args.fused else {}
+    fuse = dict(fuse_proj=args.fused)
     n_frames = args.frames or (48 if args.stream else 54)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -233,16 +244,16 @@ def main(argv=None) -> int:
     if args.stream:
         for ctx_kernel in (False, True):
             print(json.dumps({"phase": "stream_layers",
-                              "ctx_kernel": ctx_kernel,
+                              "ctx_kernel": ctx_kernel, **fuse,
                               "steps": n_frames - 12,
                               "ms": stream_layer_times(model, frames,
-                                                       ctx_kernel)}),
+                                                       ctx_kernel, **fuse)}),
                   flush=True)
-            stream = vt.StreamingDepth(model, ctx_kernel=ctx_kernel)
+            stream = vt.StreamingDepth(model, ctx_kernel=ctx_kernel, **fuse)
             for f in frames[:12]:
                 stream.submit(f)
             print(json.dumps({"phase": "profile_stream",
-                              "ctx_kernel": ctx_kernel,
+                              "ctx_kernel": ctx_kernel, **fuse,
                               "steps": n_frames - 12,
                               **device_profile(lambda: [
                                   stream.submit(f) for f in frames[12:]])}),
@@ -250,16 +261,21 @@ def main(argv=None) -> int:
         return 0
     x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
                           (518, 518), dtype=torch.bfloat16)
-    print(json.dumps({"phase": "layers", "reps": args.reps,
-                      "ms": layer_times(model, x, args.reps)}), flush=True)
-    vt.forward(model, x)  # warm-up outside the profiler
-    print(json.dumps({"phase": "profile_window",
-                      **device_profile(lambda: vt.forward(model, x))}),
+    # the tail in 16-frame chunks, as infer_video_depth runs it
+    win_kw["micro_batch_size"] = 16
+    print(json.dumps({"phase": "layers", "reps": args.reps, **win_kw,
+                      "ms": layer_times(model, x, args.reps, **win_kw)}),
           flush=True)
-    vt.infer_video_depth(model, frames[:32], 30.0)
+    vt.forward(model, x, **win_kw)  # warm-up outside the profiler
+    print(json.dumps({"phase": "profile_window", **win_kw,
+                      **device_profile(lambda: vt.forward(model, x,
+                                                          **win_kw))}),
+          flush=True)
+    kw = {k: v for k, v in win_kw.items() if k != "micro_batch_size"}
+    vt.infer_video_depth(model, frames[:32], 30.0, **kw)
     print(json.dumps({"phase": "profile_end_to_end", "frames": n_frames,
-                      **device_profile(lambda: vt.infer_video_depth(
-                          model, frames, 30.0))}), flush=True)
+                      **kw, **device_profile(lambda: vt.infer_video_depth(
+                          model, frames, 30.0, **kw))}), flush=True)
     return 0
 
 
