@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's nine hand-written kernels from vda_tpu_torch/csrc and
+Builds the port's ten hand-written kernels from vda_tpu_torch/csrc and
 vda_tpu_torch/ops (nvcc for sm_90a, one process a source, and the Triton
 JIT), checks each against its plain PyTorch twin at the shapes its main
 paths give it, with its time beside the least time the card could take and
-beside one PyTorch library call where one computes the same function, then
-drives each main path with every launch counter set to 0 just before it and
-read just after:
+beside one PyTorch library call where one computes the same function (and
+the gradients of the two differentiable kernels, K2 and K10, against
+autograd through their plain forms), then drives each main path with every
+launch counter set to 0 just before it and read just after:
 
   * ``main_path``: offline windowed ``infer_video_depth`` on a vitl model
     with seeded random weights over a 54-frame 518x518 video (three
@@ -27,7 +28,17 @@ read just after:
     against the default stream, counts asserted step by step;
   * ``cross_attention``: ``models.cross_attention`` at vitl encoder widths,
     self-attention through K9 against ``impl="plain"``, and a cross call
-    (M != N) that K9's gate refuses.
+    (M != N) that K9's gate refuses;
+  * ``nested_block``: ``block_apply_nested`` on a vitl block over DINOv2's
+    multi-crop batch (32 images: 64 global crops of 257 tokens, 256 local
+    crops of 50), bf16, through K8, against per-sample ``block_apply`` and
+    ``impl="plain"``;
+  * ``train``: the training slice's main path, ``parallel.trainer.train``
+    on vitl, fp32, 6 steps of 1x8x518x518 synthetic clips (remat,
+    warmup-cosine schedule, clipping, accumulation 2, augmentation,
+    prefetch, a metrics JSONL), K2 launches asserted per step and no
+    attention or temporal kernel; then a checkpoint resumed bit for bit,
+    and one step with the kernels against the all-plain step.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Without a CUDA device it fails at once and prints no result.  The last
@@ -54,7 +65,7 @@ N_FRAMES = 54  # three 32-frame windows: keyframe overlap and stitching run
 SIZE = 518
 N_STREAM = 48  # STREAM_MAX_CACHE + 6 streaming steps
 ZERO = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-        "K9": 0, "K10": 0}
+        "K8": 0, "K9": 0, "K10": 0}
 # vitl launches a window: K2 is two norms a block, four tap norms, and the
 # ff_norm of mm0/mm1 (K4 takes their attention sub-blocks, K3 whole blocks
 # of mm2/mm3)
@@ -87,6 +98,8 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
            "vda_tpu/ops/pallas_stream.py:119"),
     "K7": ("cuda", "vda_tpu_torch/csrc/attention_proj.cu",
            "vda_tpu/ops/pallas_attention.py:274"),
+    "K8": ("cuda", "vda_tpu_torch/csrc/segment_attention.cu",
+           "vda_tpu/ops/pallas_attention.py:641"),
     "K9": ("cuda", "vda_tpu_torch/csrc/attention_qkv.cu",
            "vda_tpu/ops/pallas_attention.py:112"),
     "K10": ("cuda", "vda_tpu_torch/csrc/resize_bilinear.cu",
@@ -103,9 +116,19 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
 # temporal kernels to (tests/test_pallas_temporal.py).  bf16 K9 as K1.
 # bf16 K7 against the bf16 twin: the bound the JAX package holds its fused
 # kernel to (tests/test_attn_fuse_proj.py).  K10 is bit-exact with its twin
-# (two exact products, one rounding).  fp32 cases: summation order only.
+# (two exact products, one rounding).  bf16 K8 as K1; fp32 K8 within 1e-5
+# (summation order of the softmax only).  fp32 cases: summation order only.
+# Gradients of K2 and K10: their backward is autograd through the plain
+# form on the same saved inputs, so the same gradient up to reduction
+# order: 1e-5 of the gradient's scale.
 TOL = {"K1": 3.9e-3, "K2": 3.9e-3, "K3": 2e-2, "K4": 2e-2, "K5": 3.9e-3,
-       "K6": 3.9e-3, "K7": 2e-2, "K9": 3.9e-3, "K10": 1e-12, "fp32": 1e-4}
+       "K6": 3.9e-3, "K7": 2e-2, "K8": 3.9e-3, "K9": 3.9e-3, "K10": 1e-12,
+       "fp32": 1e-4, "K8_fp32": 1e-5, "grad": 1e-5}
+# DINOv2's multi-crop batch (its NestedTensorBlock's input): per image 2
+# global crops of 224 (257 tokens) and 8 local crops of 98 (50 tokens)
+MULTI_CROP = (32, (2, 257), (8, 50))
+N_TRAIN_STEPS = 6
+TRAIN_CLIP = (1, 8, SIZE)  # B, T, side: scripts/train_throughput.py's shape
 # The least time of a call: the larger of its bytes (each input read once,
 # each output written once) over the memory rate and its operations over
 # the peak rate for their type (NVIDIA H100 SXM data sheet, dense).
@@ -202,6 +225,7 @@ def phase_kernels(model):
     from vda_tpu_torch.ops import attn_proj_kernel as k7
     from vda_tpu_torch.ops import norm_kernel as k2
     from vda_tpu_torch.ops import resize_kernel as k10
+    from vda_tpu_torch.ops import segment_kernel as k8
     from vda_tpu_torch.ops import stream_kernel as k6
     from vda_tpu_torch.ops import temporal_kernel as k34
     from vda_tpu_torch.ops import tiny_seq_kernel as k5
@@ -389,6 +413,40 @@ def phase_kernels(model):
               *(t.view(b, n, h, d).transpose(1, 2) for t in (q, k, v)),
               scale=d ** -0.5))
     del q, k, v
+
+    # K8: block-diagonal attention at vitl widths (16 heads of 64) over the
+    # segments of DINOv2's multi-crop batch, q, k and v column slices of one
+    # fused projection as block_apply_nested hands them over; bf16 and fp32.
+    # Then one long segment a sample (32 x 1370), the K1 shape, with K1's
+    # time on the same values beside it.  Library call: SDPA over jagged
+    # nested tensors (built outside the timed call).
+    def k8_case(lengths, dtype, tol, **timed):
+        c = h * d
+        total = sum(lengths)
+        qkv = torch.randn(total, 3 * c, device="cuda", generator=g).to(dtype)
+        q8, k8_, v8 = qkv.split(c, dim=-1)
+        offs = torch.tensor([0, *np.cumsum(lengths)], device="cuda")
+        nested = [torch.nested.nested_tensor_from_jagged(t.contiguous(), offs)
+                  .unflatten(-1, (h, d)).transpose(1, 2)
+                  for t in (q8, k8_, v8)]
+        sq = sum(n * n for n in lengths)
+        check("K8", (len(lengths), total, c),
+              lambda: k8.segment_attention(q8, k8_, v8, h, d ** -0.5,
+                                           lengths),
+              lambda fp32: k8.segment_attention_reference(
+                  *((t.float() for t in (q8, k8_, v8)) if fp32
+                    else (q8, k8_, v8)), h, d ** -0.5, lengths), True, tol,
+              cost=(4 * total * c * qkv.element_size(), 4 * sq * c),
+              library=lambda: F.scaled_dot_product_attention(
+                  *nested, scale=d ** -0.5),
+              **{k: (lambda f=f: f(qkv)) for k, f in timed.items()})
+
+    n_img, (n_g, len_g), (n_l, len_l) = MULTI_CROP
+    multi_crop = [len_g] * (n_img * n_g) + [len_l] * (n_img * n_l)
+    k8_case(multi_crop, bf, TOL["K8"])
+    k8_case(multi_crop, torch.float32, TOL["K8_fp32"])
+    k8_case([n] * b, bf, TOL["K8"], k1=lambda qkv: k1.flash_attention_qkv(
+        qkv.view(b, n, 3 * h * d), h, d ** -0.5))
     # K10: the vitl tail's two upsamples (16-frame chunks), bit-exact with
     # the twin; ~9 fp32 operations an output element, at the fp32 rate
     for shape, out_hw in (((16, 148, 148, 256), (296, 296)),
@@ -436,7 +494,55 @@ def phase_kernels(model):
         *q.split(128, dim=-1), 2, 0.125),
           lambda fp32: k1.flash_attention_packed_reference(
               *q.split(128, dim=-1), 2, 0.125), True, TOL["fp32"])
+    grad_cases()
     return results
+
+
+def grad_cases():
+    """The gradients of the two differentiable kernels: x.grad (and
+    weight.grad, bias.grad of K2) through the kernel's autograd Function
+    against autograd through the plain form, on the same inputs and output
+    gradient.  K2 at vitl's (8 x 1370, 1024) in fp32 (the train step) and
+    bf16; K10 at the vitl tail's (16, 148, 148, 256) -> 296 in bf16."""
+    from vda_tpu_torch.ops import norm_kernel as k2
+    from vda_tpu_torch.ops import resize_kernel as k10
+    from vda_tpu_torch.ops.resize import resize_bilinear
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def case(name, shape, fn, twin, inputs, tol=TOL["grad"]):
+        gy = torch.randn(*fn(*inputs).shape, device="cuda", generator=g)
+        gy = gy.to(inputs[0].dtype)
+
+        def grads(f):
+            ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+            f(*ins).backward(gy)
+            return [t.grad for t in ins]
+
+        got, ref = grads(fn), grads(twin)
+        torch.cuda.synchronize()
+        errs = {f"d{i}": rel(r, x)[1] for i, (r, x) in enumerate(zip(ref,
+                                                                      got))}
+        emit(phase="kernel_grad", kernel=name, shape=list(shape),
+             dtype=str(inputs[0].dtype), max_rel=errs, tol=tol,
+             fwd_bwd_ms=time_ms(lambda: grads(fn), 3),
+             plain_fwd_bwd_ms=time_ms(lambda: grads(twin), 3))
+        bad = {k: v for k, v in errs.items() if not v < tol}
+        if bad or not all(torch.isfinite(x).all() for x in got):
+            raise AssertionError(f"{name} {shape} gradients: {errs}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(8 * 1370, 1024, device="cuda", generator=g) * 2
+             + 0.5).to(dtype)
+        w = torch.randn(1024, device="cuda", generator=g)
+        b_ = torch.randn(1024, device="cuda", generator=g)
+        case("K2", x.shape, lambda *a: k2.fused_layer_norm(*a, 1e-6),
+             lambda *a: k2.layer_norm_reference(*a, 1e-6), (x, w, b_))
+    x = torch.randn(16, 148, 148, 256, device="cuda", generator=g)
+    x = x.to(torch.bfloat16)
+    case("K10", (*x.shape, 296, 296),
+         lambda t: k10.resize_bilinear_fused(t, (296, 296)),
+         lambda t: resize_bilinear(t, (296, 296), kernel=False), (x,))
 
 
 def phase_main_path(model):
@@ -743,6 +849,226 @@ def phase_cross_attention():
     return counts
 
 
+def phase_nested_block(model):
+    """``block_apply_nested`` on vitl's first encoder block over the
+    multi-crop list [(64, 257, 1024), (256, 50, 1024)] (29,248 rows), bf16:
+    one K8 launch (and the two K2 norms) a call, held to per-sample
+    ``block_apply`` without kernels and to ``impl="plain"`` (bench.py's
+    max_rel < 1e-2).  Returns the launches of one call."""
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.models.dinov2 import block_apply, block_apply_nested
+
+    cfg = model.cfg.vit
+    blk = model.pretrained.blocks[0]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n_img, (n_g, len_g), (n_l, len_l) = MULTI_CROP
+    x_list = [torch.randn(n_img * k, n, cfg.embed_dim, device="cuda",
+                          generator=g).to(torch.bfloat16)
+              for k, n in ((n_g, len_g), (n_l, len_l))]
+    with torch.no_grad():
+        block_apply_nested(blk, x_list, cfg)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = block_apply_nested(blk, x_list, cfg)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        per_sample = [block_apply(blk, xi, cfg, kernels=False) for xi in x_list]
+        plain = block_apply_nested(blk, x_list, cfg, impl="plain")
+        ms = time_ms(lambda: block_apply_nested(blk, x_list, cfg), 5)
+        plain_ms = time_ms(lambda: block_apply_nested(blk, x_list, cfg,
+                                                      impl="plain"), 2)
+        per_sample_ms = time_ms(lambda: [block_apply(blk, xi, cfg, False)
+                                         for xi in x_list], 2)
+    rel_ps = max(rel(r, o)[1] for r, o in zip(per_sample, got))
+    rel_plain = max(rel(r, o)[1] for r, o in zip(plain, got))
+    emit(phase="nested_block", shapes=[list(x.shape) for x in x_list],
+         rows=sum(x.shape[0] * x.shape[1] for x in x_list), launches=counts,
+         max_rel_vs_per_sample=rel_ps, max_rel_vs_plain=rel_plain, ms=ms,
+         plain_ms=plain_ms, per_sample_ms=per_sample_ms)
+    if counts != {**ZERO, "K8": 1, "K2": 2}:
+        raise AssertionError(f"nested_block launches {counts}")
+    if not all(torch.isfinite(o).all() for o in got) \
+            or not (rel_ps < 1e-2 and rel_plain < 1e-2):
+        raise AssertionError(f"nested_block vs per-sample {rel_ps}, vs "
+                             f"plain {rel_plain}")
+    return counts
+
+
+def synthetic_clips(seed: int = 0):
+    """Seeded synthetic training batches (``apps/train.py``'s
+    ``synthetic_iter``): video uniform in [0, 1), depth in [0.1, 5.1), all
+    pixels valid."""
+    b, t, side = TRAIN_CLIP
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {"video": rng.random((b, t, side, side, 3), dtype=np.float32),
+               "depth": rng.random((b, t, side, side), dtype=np.float32) * 5
+               + 0.1,
+               "mask": np.ones((b, t, side, side), bool)}
+
+
+def train_model(cfg, seed: int):
+    import vda_tpu_torch as vt
+
+    model = vt.init_random(cfg, torch.Generator(device="cuda").manual_seed(
+        seed))
+    final = model.head.scratch.output_conv2[2]
+    with torch.no_grad():
+        # a live final ReLU (tests/test_train.py), and a depth that varies:
+        # random weights give a near-constant one, on which the loss's
+        # scale-and-shift fit cancels and its gradient follows the rounding
+        final.bias.add_(0.5)
+        final.weight.mul_(20.0)
+    return model
+
+
+def same_state(a, b) -> bool:
+    """Bit-identical TrainStates: model state dicts, AdamW moments and
+    steps, accumulator, micro-step, update count and step."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k])
+                                         for k in sa):
+        return False
+    oa, ob = a.opt_state.state_dict(), b.opt_state.state_dict()
+    for pa, pb in zip(oa["adam"]["state"].values(),
+                      ob["adam"]["state"].values(), strict=True):
+        # AdamW keeps its step count on the host; a restore may place it
+        # on the card
+        if pa.keys() != pb.keys() or not all(
+                torch.equal(pa[k], pb[k].to(pa[k].device)) for k in pa):
+            return False
+    return (all(torch.equal(x, y) for x, y in zip(oa["acc"], ob["acc"],
+                                                  strict=True))
+            and (oa["mini_step"], oa["count"], a.step)
+            == (ob["mini_step"], ob["count"], b.step))
+
+
+def phase_train():
+    """The training slice's main path on vitl (seeded random weights, fp32
+    as the JAX step runs): ``parallel.trainer.train`` over 1x8x518x518
+    synthetic clips for 6 steps with remat, the warmup-cosine schedule
+    (warmup 2), clip_norm 1, accum 2, augmentation to 518x518, prefetch 2
+    and a metrics JSONL.  Asserts finite losses and gradient norms, changed
+    parameters, K2 launches per step as the code makes them and no other
+    kernel (K10's gate refuses fp32, as in JAX); resumes the last checkpoint
+    into a fresh state bit for bit; then one step from that state and one
+    batch with the kernels (attn_impl "xla") and all-plain.  Returns the
+    launches of the train run.  (The comparison is held on a batch whose
+    mask leaves 40% of the pixels valid; see below.)"""
+    import tempfile
+
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.parallel.train import (init_train_state,
+                                              make_optimizer, make_train_step)
+    from vda_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                restore_train_state)
+
+    cfg = vt.get_config("vitl")
+    model = train_model(cfg, 5)
+    before = [p.detach().clone() for p in model.parameters()]
+    work = tempfile.mkdtemp(prefix="vda_train_")
+    metrics_path = os.path.join(work, "metrics.jsonl")
+    kw = dict(learning_rate=1e-5, schedule=True, warmup_steps=2,
+              clip_norm=1.0, accum=2, augment_hw=(SIZE, SIZE), prefetch=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = vt.train(model, synthetic_clips(), N_TRAIN_STEPS, ckpt_dir=work,
+                     metrics_path=metrics_path, log_fn=lambda *_: None, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(metrics_path) as f:
+        rows = [json.loads(line) for line in f]
+    walls = [0.0] + [r["wall_s"] for r in rows]
+    step_ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    steady = float(np.median(step_ms[1:]))
+    # K2 a step: norm1 and norm2 of each block and the four tap norms in
+    # the forward, three norms of each motion module (widths 1024, 1024,
+    # 256, 256: all % 128), and each block's two again in its remat
+    # recompute; the backward of K2 is plain (no launch)
+    depth = cfg.vit.depth
+    per_step = 2 * depth + 4 + 3 * 4 + 2 * depth
+    want = {**ZERO, "K2": per_step * N_TRAIN_STEPS}
+    changed = sum(int(not torch.equal(p0, p)) for p0, p in
+                  zip(before, model.parameters()))
+    finite = all(np.isfinite([r[k] for k in ("total_loss", "spatial_loss",
+                                            "stable_loss", "grad_norm")]).all()
+                 for r in rows)
+    del before
+    # resume: the last checkpoint into a fresh state, bit for bit
+    opt = make_optimizer(1e-5, warmup_steps=2 // 2,
+                         total_steps=N_TRAIN_STEPS // 2, clip_norm=1.0,
+                         accum_steps=2)
+    fresh = init_train_state(train_model(cfg, 6), opt)
+    restore_train_state(latest_checkpoint(work), fresh)
+    resumed_equal = same_state(state, fresh)
+    del fresh
+    # one step from the checkpoint's state on one batch: kernels vs plain.
+    # The loss normalises each frame by its median pixel, whose gradient
+    # lands on that one pixel; with every pixel valid, the rounding by which
+    # K2 and the plain LayerNorm differ moves the median to another pixel
+    # and the gradient with it (tests/test_torch_loss.py,
+    # test_median_gradient_sits_on_the_median_pixel), so the held
+    # comparison uses a LiDAR-like mask (40% valid), where the median is a
+    # zeroed invalid pixel that passes no gradient; the dense batch's gap
+    # is reported only
+    batch = next(synthetic_clips(7))
+    sparse = dict(batch, mask=np.random.default_rng(8).random(
+        batch["mask"].shape) < 0.4)
+    step_out = {}
+    for mask_kind, bt in (("sparse", sparse), ("dense", batch)):
+        for impl in ("xla", "plain"):
+            st = restore_train_state(latest_checkpoint(work), state)
+            step = make_train_step(opt, augment_hw=(SIZE, SIZE),
+                                   attn_impl=impl)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, m = step(st, bt)
+            torch.cuda.synchronize()
+            step_out[mask_kind, impl] = (
+                {k: float(v) for k, v in m.items()},
+                1e3 * (time.perf_counter() - t1))
+
+    def rel_gap(mask_kind, key):
+        a, b = (step_out[mask_kind, impl][0][key] for impl in ("xla", "plain"))
+        return abs(a - b) / abs(b)
+
+    loss_rel, gn_rel = rel_gap("sparse", "total_loss"), rel_gap("sparse",
+                                                               "grad_norm")
+    b, t, side = TRAIN_CLIP
+    emit(phase="train", steps=N_TRAIN_STEPS, clip=[b, t, side, side, 3],
+         dtype="float32", tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         tf32_cudnn=torch.backends.cudnn.allow_tf32, wall_s=wall,
+         step_ms=step_ms, steady_ms_per_step=steady,
+         steady_steps="1-5 (median)", frames_per_s=1e3 * b * t / steady,
+         max_memory_allocated=peak, launches=counts,
+         k2_per_step=per_step, params_changed=changed,
+         params=len(list(model.parameters())), metrics=rows,
+         resumed_bit_identical=resumed_equal,
+         one_step={f"{k[0]}_{k[1]}": v[0] for k, v in step_out.items()},
+         one_step_ms={f"{k[0]}_{k[1]}": v[1] for k, v in step_out.items()},
+         loss_rel_xla_vs_plain=loss_rel, grad_norm_rel_xla_vs_plain=gn_rel,
+         dense_mask_loss_rel=rel_gap("dense", "total_loss"),
+         dense_mask_grad_norm_rel=rel_gap("dense", "grad_norm"))
+    shutil.rmtree(work)
+    if len(rows) != N_TRAIN_STEPS or not finite:
+        raise AssertionError(f"train metrics not finite: {rows}")
+    if counts != want:
+        raise AssertionError(f"train launches {counts} != {want}")
+    if not changed:
+        raise AssertionError("train: no parameter changed")
+    if not resumed_equal:
+        raise AssertionError("train: resumed state differs from the saved")
+    if not (loss_rel < 1e-4 and gn_rel < 1e-3):
+        raise AssertionError(f"train step xla vs plain: loss {loss_rel}, "
+                             f"grad_norm {gn_rel}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -764,7 +1090,9 @@ def main() -> int:
     fused = phase_fused_window(model, frames)
     fused_stream = phase_fused_stream(model, frames[:N_FUSED_STREAM])
     cross = phase_cross_attention()
-    paths = (window, stream, vits, fused, fused_stream, cross)
+    nested = phase_nested_block(model)
+    train = phase_train()
+    paths = (window, stream, vits, fused, fused_stream, cross, nested, train)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     idle = [k for k, n in launches.items() if not n]
     if idle:

@@ -138,9 +138,13 @@ def test_port_imports_no_jax():
             "vda_tpu_torch.ops.attn_proj_kernel, "
             "vda_tpu_torch.ops.resize_kernel, "
             "vda_tpu_torch.models.cross_attention, "
-            "vda_tpu_torch.utils.profiling; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'vda_tpu.')) or m == 'vda_tpu']; print(bad); "
+            "vda_tpu_torch.utils.profiling, vda_tpu_torch.ops.segment_kernel, "
+            "vda_tpu_torch.loss.loss, vda_tpu_torch.parallel.train, "
+            "vda_tpu_torch.parallel.trainer, vda_tpu_torch.utils.augment, "
+            "vda_tpu_torch.utils.data, vda_tpu_torch.utils.checkpoint; "
+            "bad = [m for m in sys.modules if m in ('jax', 'vda_tpu', "
+            "'optax', 'orbax') or m.startswith(('jax.', 'vda_tpu.', "
+            "'optax.', 'orbax.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -102,9 +102,12 @@ def test_packed_self_attention_matches_jax(k9_calls, n, impl, kernel):
 
 def test_dispatch_refusals():
     x = torch.zeros(1, 8, 64)
-    with pytest.raises(NotImplementedError, match="K8"):
-        tattention.packed_self_attention(x, x, x, 2,
+    with pytest.raises(ValueError, match="B=1"):  # segments need a packed batch
+        x2 = torch.zeros(2, 8, 64)
+        tattention.packed_self_attention(x2, x2, x2, 2,
                                          segment_lengths=(3, 5))
+    with pytest.raises(ValueError, match="sum"):
+        tattention.packed_self_attention(x, x, x, 2, segment_lengths=(3, 4))
     with pytest.raises(ValueError):
         tattention.packed_self_attention(x, x, x, 2, impl="pallas")
     with pytest.raises(ValueError):

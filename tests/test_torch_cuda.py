@@ -1,6 +1,7 @@
-"""The port's nine kernels against their plain twins on the card, over the
-widths the model configs give them, and one small forward and one small
-stream with and without the kernels (and with K7/K10 switched on).
+"""The port's ten kernels against their plain twins on the card, over the
+widths the model configs give them, the gradients of K2 and K10, and one
+small forward, one small stream and two small train steps with and without
+the kernels (and with K7/K10 switched on).
 
 Needs an NVIDIA GPU with nvcc and Triton; elsewhere every test skips.  Run
 on the GPU host from the repo root, without the JAX test configuration:
@@ -15,9 +16,11 @@ fused temporal kernels to); bf16 K5/K6 against the bf16 twin, which rounds
 at the same points, 3.9e-3 (a summation order that flips one rounding moves
 an output by at most one bf16 ulp); bf16 K9 as K1; bf16 K7 against the
 bf16 twin, 2e-2 (the bound tests/test_attn_fuse_proj.py holds the JAX fused
-kernel to); K10 bit-exact with its twin; fp32, summation order only, 1e-4.
+kernel to); K10 bit-exact with its twin; bf16 K8 as K1; fp32, summation
+order only, 1e-4.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +34,7 @@ from vda_tpu_torch.ops import (
     attn_proj_kernel,
     norm_kernel,
     resize_kernel,
+    segment_kernel,
     stream_kernel,
     temporal_kernel,
     tiny_seq_kernel,
@@ -154,10 +158,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # head width 4
         attention_kernel.flash_attention_qkv(qkv[..., :96].contiguous(), 8,
                                              0.5)
-    with pytest.raises(NotImplementedError):  # no backward yet
-        norm_kernel.fused_layer_norm(qkv[..., :128].float().requires_grad_(),
-                                     torch.ones(128, device="cuda"),
-                                     torch.zeros(128, device="cuda"))
+    x = qkv[..., :128].float().requires_grad_()  # K2 is differentiable
+    norm_kernel.fused_layer_norm(x, torch.ones(128, device="cuda"),
+                                 torch.zeros(128, device="cuda")).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
     blk = _block(256, gen)
     h = torch.randn(4, 32, 256, device="cuda", generator=gen).to(BF)
     pe = blk.attention_blocks[0].pos_encoder.pe[0]
@@ -426,8 +430,8 @@ def test_forward_kernels_match_plain(gen, dtype, fused):
     # K2: two block norms a layer, four tap norms, mm0/mm1's ff_norm
     assert tops.launch_counts() == {
         "K1": 0 if fused else depth, "K2": 2 * depth + 4 + 2, "K3": 2,
-        "K4": 4, "K5": 0, "K6": 0, "K7": depth if fused else 0, "K9": 0,
-        "K10": int(fused and dtype == BF)}
+        "K4": 4, "K5": 0, "K6": 0, "K7": depth if fused else 0, "K8": 0,
+        "K9": 0, "K10": int(fused and dtype == BF)}
     ref = vt.forward(model, x, attn_impl="plain")
     assert got.shape == ref.shape == (1, 8, 322, 322)
     assert float(ref.float().std()) > 0
@@ -487,3 +491,135 @@ def test_streaming_cache_kinds_agree(gen):
             assert s.order == kv.order
     assert all(b.dtype == torch.int8 for b in others[1].buffers)
     assert others[1].cache_bytes() < kv.cache_bytes() // 2 + 4096
+
+
+# ---------------------------------------------------------------------------
+# the training slice: K8, the K2/K10 gradients, a train step
+# ---------------------------------------------------------------------------
+
+SEGMENTS = [(257, 257, 50, 50, 50), (1, 64, 65, 1, 128, 7, 130),
+            (1370, 1370), (1,) * 9, (300, 20, 1, 200)]
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("heads,dh", [(4, 8), (4, 16), (4, 40), (2, 64),
+                                      (4, 80), (2, 128), (6, 64), (16, 64),
+                                      (24, 64)])
+@pytest.mark.parametrize("lengths", SEGMENTS, ids=str)
+def test_k8_segment_attention(gen, dtype, heads, dh, lengths):
+    """K8 against the per-segment twin in fp32 on the same inputs, over
+    head widths 8..128, the vits/vitl/vitg head counts (6, 16, 24 of 64) and
+    ragged segments (single rows, tile edges, one past 1370); q, k and v
+    column slices of one fused projection.  Tolerance as K1's."""
+    total, c = sum(lengths), heads * dh
+    qkv = torch.randn(total, 3 * c, device="cuda", generator=gen).to(dtype)
+    q, k, v = qkv.split(c, dim=-1)
+    got = _launched("K8", lambda: segment_kernel.segment_attention(
+        q, k, v, heads, dh ** -0.5, lengths))
+    ref = segment_kernel.segment_attention_reference(
+        q.float(), k.float(), v.float(), heads, dh ** -0.5, lengths)
+    assert got.dtype == dtype and got.shape == (total, c)
+    assert _rel(ref, got) < TOL[dtype]
+
+
+def test_k8_refuses_what_the_kernel_does_not_take(gen):
+    q = torch.randn(12, 128, device="cuda", generator=gen)
+    with pytest.raises(ValueError):  # head width 12
+        segment_kernel.segment_attention(q[:, :24], q[:, :24], q[:, :24], 2,
+                                         0.1, (5, 7))
+    with pytest.raises(ValueError):  # head width 136
+        w = torch.randn(12, 272, device="cuda", generator=gen)
+        segment_kernel.segment_attention(w, w, w, 2, 0.1, (5, 7))
+    with pytest.raises(ValueError):  # fp16
+        segment_kernel.segment_attention(q.half(), q.half(), q.half(), 2,
+                                         0.1, (5, 7))
+    with pytest.raises(ValueError):  # lengths do not sum to the rows
+        segment_kernel.segment_attention(q, q, q, 2, 0.1, (5, 6))
+    with pytest.raises(ValueError):  # k laid out unlike q
+        segment_kernel.segment_attention(q, torch.cat([q, q], -1)[:, :128],
+                                         q, 2, 0.1, (5, 7))
+    with pytest.raises(NotImplementedError):  # forward only, as in JAX
+        r = q.clone().requires_grad_()
+        segment_kernel.segment_attention(r, r, r, 2, 0.1, (5, 7))
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_k2_k10_gradients_match_plain(gen, dtype):
+    """x.grad (K2: and weight.grad, bias.grad) through the kernels'
+    autograd Functions against autograd through the plain forms: the same
+    backward on the same saved inputs, 1e-5 of the gradient's scale."""
+    from vda_tpu_torch.ops.resize import resize_bilinear
+
+    def grads(fn, inputs, gy):
+        ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+        fn(*ins).backward(gy)
+        return [t.grad for t in ins]
+
+    x = (torch.randn(3, 70, 256, device="cuda", generator=gen) * 2).to(dtype)
+    w, b = (torch.randn(256, device="cuda", generator=gen) for _ in range(2))
+    gy = torch.randn(3, 70, 256, device="cuda", generator=gen).to(dtype)
+    got = grads(lambda *a: _launched("K2", lambda: norm_kernel.
+                                     fused_layer_norm(*a, 1e-5)),
+                (x, w, b), gy)
+    ref = grads(lambda *a: norm_kernel.layer_norm_reference(*a, 1e-5),
+                (x, w, b), gy)
+    for r, g in zip(ref, got):
+        assert _rel(r, g) < 1e-5
+    if dtype == BF:
+        x = torch.randn(8, 20, 24, 128, device="cuda", generator=gen).to(BF)
+        gy = torch.randn(8, 32, 40, 128, device="cuda", generator=gen).to(BF)
+        (g,) = grads(lambda t: _launched("K10", lambda: resize_kernel.
+                                         resize_bilinear_fused(t, (32, 40))),
+                     (x,), gy)
+        (r,) = grads(lambda t: resize_bilinear(t, (32, 40), kernel=False),
+                     (x,), gy)
+        assert _rel(r, g) < 1e-5
+
+
+def test_train_step_kernels_match_plain(gen):
+    """Two fp32 train steps of the small model (remat, accumulation over 2,
+    clipping, augmentation) with JAX's training set (K2 only; K2 launches
+    in the forward and the remat recompute) and all-plain, from one state
+    and batch: losses within 1e-5 and gradient norms within 1e-4
+    relative."""
+    from vda_tpu_torch.parallel.train import (init_train_state,
+                                              make_optimizer,
+                                              make_train_step)
+
+    sd = _small_model(gen).state_dict()
+    batch = {"video": torch.rand(1, 2, 330, 340, 3, device="cuda",
+                                 generator=gen),
+             "depth": torch.rand(1, 2, 330, 340, device="cuda",
+                                 generator=gen) * 3 + 0.2,
+             # 40% valid: the frames' medians are invalid (zeroed) pixels,
+             # which pass no gradient (chip_smoke.py phase_train says why)
+             "mask": torch.rand(1, 2, 330, 340, device="cuda",
+                                generator=gen) < 0.4}
+    out = {}
+    final = "head.scratch.output_conv2.2."
+    sd[final + "bias"] += 0.5  # a live ReLU and a depth that varies
+    sd[final + "weight"] *= 20.0  # (chip_smoke.py's train_model)
+    for impl in ("xla", "plain"):
+        model = _small_model(gen)
+        model.load_state_dict(sd)
+        model.requires_grad_(True)
+        opt = make_optimizer(1e-4, clip_norm=1.0, accum_steps=2)
+        st = init_train_state(model, opt)
+        step = make_train_step(opt, augment_hw=(322, 322), attn_impl=impl)
+        out[impl] = []
+        for _ in range(2):
+            tops.reset_launch_counts()
+            st, m = step(st, batch)
+            torch.cuda.synchronize()
+            n = tops.launch_counts()
+            # xla: 2 norms a block and 4 tap norms, 3 a motion module (640
+            # and 128 wide), and the blocks' norms again in the recompute
+            assert n == {**{k: 0 for k in n},
+                         "K2": (2 * 2 + 4 + 12 + 2 * 2) if impl == "xla"
+                         else 0}
+            out[impl].append({k: float(v) for k, v in m.items()})
+    for a, b in zip(out["xla"], out["plain"]):
+        assert all(np.isfinite(list(a.values())))
+        assert abs(a["total_loss"] - b["total_loss"]) <= \
+            1e-5 * abs(b["total_loss"])
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 1e-4 * b["grad_norm"]

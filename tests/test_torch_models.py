@@ -121,7 +121,9 @@ def jax_depth(models, frames):
 @pytest.mark.parametrize("attn_impl", ["auto", "plain"])
 def test_forward(models, frames, jax_depth, attn_impl):
     model, ref = models[2], jax_depth
-    got = tvda.forward(model, torch.from_numpy(frames), attn_impl=attn_impl)
+    with torch.no_grad():  # forward is differentiable; inference runs it so
+        got = tvda.forward(model, torch.from_numpy(frames),
+                           attn_impl=attn_impl)
     assert got.shape == ref.shape == (1, T, 56, 70)
     assert np.isfinite(got.numpy()).all()
     assert rel_err(ref, got.numpy()) < TOL

@@ -2,16 +2,23 @@
 
 It runs Video Depth Anything on an NVIDIA Hopper GPU: offline windowed
 inference (``infer_video_depth``, optionally with ``fuse_proj`` and
-``resize_kernel``) and causal streaming (``StreamingDepth``), plus the
-generic attention library (``models/cross_attention.py``).  Plain tensor
-code is PyTorch; the nine TPU kernels of those paths are hand-written
-Hopper kernels, each beside a plain PyTorch twin:
+``resize_kernel``), causal streaming (``StreamingDepth``), the generic
+attention library (``models/cross_attention.py``), and training on one
+device: ``video_depth_loss`` (``loss/``), ``make_optimizer`` /
+``init_train_state`` / ``make_train_step`` (``parallel/train.py``), the
+``train`` loop with metrics, prefetch and checkpoint resume
+(``parallel/trainer.py``, ``utils/data.py``, ``utils/checkpoint.py``,
+``utils/augment.py``), and ``models/dinov2.block_apply_nested`` for
+multi-crop batches.  Plain tensor code is PyTorch; the ten TPU kernels of
+those paths are hand-written Hopper kernels, each beside a plain PyTorch
+twin:
 
   * K1 / K9 ``ops/attention_kernel.py`` + ``csrc/attention_qkv.cu``:
     attention read in place from the fused qkv projection / over separate
     q, k and v (``ops/attention.py``'s dispatch), one device loop
     (``csrc/flash_attention.cuh``)
-  * K2 ``ops/norm_kernel.py`` (Triton): one-pass LayerNorm
+  * K2 ``ops/norm_kernel.py`` (Triton): one-pass LayerNorm; differentiable,
+    its backward a recompute through the plain twin, as in JAX
   * K3 / K4 ``ops/temporal_kernel.py`` + ``csrc/temporal_block.cu``: a whole
     temporal transformer block / one attention sub-block
   * K5 ``ops/tiny_seq_kernel.py`` + ``csrc/tiny_seq_attention.cu``:
@@ -21,8 +28,12 @@ Hopper kernels, each beside a plain PyTorch twin:
   * K7 ``ops/attn_proj_kernel.py`` + ``csrc/attention_proj.cu``: attention,
     out-projection, LayerScale and residual of an encoder block
     (``fuse_proj=True``)
+  * K8 ``ops/segment_kernel.py`` + ``csrc/segment_attention.cu``:
+    block-diagonal attention over packed variable-length segments
+    (``block_apply_nested``; forward only, as in JAX)
   * K10 ``ops/resize_kernel.py`` + ``csrc/resize_bilinear.cu``: the output
-    tail's bf16 bilinear upsamples (``resize_kernel=True``)
+    tail's bf16 bilinear upsamples (``resize_kernel=True``); differentiable,
+    its backward the plain separable form, as in JAX
 
 The package never imports JAX or ``vda_tpu``; the JAX package is the
 reference its tests hold it to.
@@ -39,7 +50,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 from vda_tpu_torch.config import MODEL_CONFIGS, ModelConfig, get_config  # noqa: E402,F401
 from vda_tpu_torch.infer.streaming import StreamingDepth  # noqa: E402,F401
 from vda_tpu_torch.infer.windowed import infer_video_depth  # noqa: E402,F401
+from vda_tpu_torch.loss import video_depth_loss  # noqa: E402,F401
 from vda_tpu_torch.models.vda import VideoDepthAnything, forward  # noqa: E402,F401
+from vda_tpu_torch.parallel.train import (  # noqa: E402,F401
+    TrainState,
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+)
+from vda_tpu_torch.parallel.trainer import train  # noqa: E402,F401
 from vda_tpu_torch.utils.convert import (  # noqa: E402,F401
     init_random,
     load_state_dict_numpy,

@@ -34,7 +34,7 @@ from vda_tpu_torch.models.vda import (
     VideoDepthAnything,
     forward_depth,
     forward_features,
-    use_kernels,
+    kernel_set,
 )
 from vda_tpu_torch.ops.resize import resize_bilinear
 from vda_tpu_torch.utils.transform import (
@@ -169,20 +169,20 @@ class StreamingDepth:
     run the encoder blocks through K7 (JAX's ``VDA_ATTN_FUSE_PROJ=1``); it
     needs the kernels.  (K10's gate refuses every batch-1 resize, so the
     stream offers no ``resize_kernel``.)  fp32: run the network in fp32
-    instead of bf16.  attn_impl: "auto" (the kernels) or "plain" (plain
-    PyTorch everywhere)."""
+    instead of bf16.  attn_impl: "auto" (the kernels), "xla" (JAX's
+    training set: K2 only) or "plain" (plain PyTorch everywhere)."""
 
     def __init__(self, model: VideoDepthAnything, input_size: int = 518,
                  fp32: bool = False, attn_impl: str = "auto",
                  cache_kind: str = "kv", cache_dtype: str = "bf16",
                  ctx_kernel: bool = False, fuse_proj: bool = False):
-        use_kernels(attn_impl, fuse_proj=fuse_proj)  # validates them
+        kernel_set(attn_impl, fuse_proj=fuse_proj)  # validates them
         if cache_kind not in ("kv", "h"):
             raise ValueError(f"cache_kind must be kv or h, got {cache_kind!r}")
         if cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"cache_dtype must be bf16 or int8, "
                              f"got {cache_dtype!r}")
-        if ctx_kernel and (cache_kind != "kv" or attn_impl == "plain"):
+        if ctx_kernel and (cache_kind != "kv" or attn_impl != "auto"):
             raise ValueError("ctx_kernel requires cache_kind='kv' and the "
                              "kernels (attn_impl='auto')")
         self.model = model

@@ -14,7 +14,10 @@ else each attention sub-block runs in K4 where it takes the width
 (``attn_fused_supported``); every other attention over whole sequences of
 at most 64 frames runs in K5 (``tiny_seq_kernel.use_kernel``), the
 streaming first step included; the kv cache goes through K6 when the stream
-asks for it (``stream_kernel.use_kernel``).  RoPE is not ported yet.
+asks for it (``stream_kernel.use_kernel``).  ``kernels=False`` turns all
+four off; the LayerNorms take K2 by ``ln_kernel`` (default: ``kernels``),
+so JAX's training set (``attn_impl="xla"``) is ``kernels=False,
+ln_kernel=True``.  RoPE is not ported yet.
 """
 
 from __future__ import annotations
@@ -226,7 +229,7 @@ def _temporal_attention_kv_ctx(attn: TemporalAttention, h, cfg: ModelConfig,
 
 def _transformer_block(block: TemporalTransformerBlock, h, cfg: ModelConfig,
                        caches, want_kv: bool = False, need_caches: bool = True,
-                       kernels: bool = True):
+                       kernels: bool = True, ln_kernel: bool = True):
     """h: (BD, T_new, C).  Reference motion_module.py:172-189.  Returns (h,
     the new cache rows of its attention sub-blocks)."""
     c = h.shape[-1]
@@ -240,19 +243,19 @@ def _transformer_block(block: TemporalTransformerBlock, h, cfg: ModelConfig,
             h = tk.attention_block_fused(attn, norm, h, attn.pos_encoder.pe[0],
                                          heads)
             continue
-        hn = layer_norm(norm, h, eps=1e-5, kernel=kernels)
+        hn = layer_norm(norm, h, eps=1e-5, kernel=ln_kernel)
         attn_out, cache_row = _temporal_attention(
             attn, hn, cfg, None if caches is None else caches[i],
             want_kv=want_kv, kernels=kernels)
         h = attn_out + h
         out_caches.append(cache_row)
-    return tk.feed_forward(block, h, ln_kernel=kernels), out_caches
+    return tk.feed_forward(block, h, ln_kernel=ln_kernel), out_caches
 
 
 def temporal_module_apply(mm: TemporalModule, x, cfg: ModelConfig,
                           cache_list: Optional[List] = None,
                           want_kv: bool = False, need_caches: bool = True,
-                          kernels: bool = True):
+                          kernels: bool = True, ln_kernel: bool | None = None):
     """x: (B, T, H, W, C) -> ((B, T, H, W, C), new cache rows).
 
     With ``cache_list`` (streaming) T counts the new frames and each entry
@@ -260,7 +263,10 @@ def temporal_module_apply(mm: TemporalModule, x, cfg: ModelConfig,
     cache rows come back in the same kind ((k, v) with ``want_kv``), one per
     attention sub-block.  ``need_caches=False`` (offline windows) lets K3
     take whole blocks and K4 the attention sub-blocks where the JAX gates
-    admit them; those return no cache rows."""
+    admit them; those return no cache rows.  ``kernels=False`` keeps K3-K6
+    off; ``ln_kernel`` (default: ``kernels``) decides K2."""
+    if ln_kernel is None:
+        ln_kernel = kernels
     b, t, hh, ww, c = x.shape
     tt = mm.temporal_transformer
     heads = cfg.num_attention_heads
@@ -284,7 +290,7 @@ def temporal_module_apply(mm: TemporalModule, x, cfg: ModelConfig,
         if cache_list is not None:
             caches = cache_list[i * n_per:(i + 1) * n_per]
         h, out_caches = _transformer_block(block, h, cfg, caches, want_kv,
-                                           need_caches, kernels)
+                                           need_caches, kernels, ln_kernel)
         all_caches.extend(out_caches)
     h = h.reshape(b, hh * ww, t, c).transpose(1, 2)
     h = linear(tt.proj_out, h).reshape(b, t, hh, ww, c)

@@ -61,6 +61,9 @@ _SIGNATURES = {
     # q, k_new, v_new, k_buf, v_buf, pe_k, pe_v, valid, out, BHW, rows, C,
     # heads, scale, is_bf16, stream
     "vda_stream_kv_attention": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+    # q, k, v, out, tiles, n_tiles, heads, D, row_stride, scale, is_bf16,
+    # stream
+    "vda_segment_attention": [_P] * 5 + [_I] * 3 + [_I64, _F, _I, _P],
 }
 
 build_seconds = None  # wall time of the nvcc run in this process, if any

@@ -12,8 +12,11 @@ do: ``impl="plain"`` (JAX's ``"xla"``) always runs ``attention_plain``;
 ``impl="auto"`` runs K9 (``attention_kernel.flash_attention_packed``) where
 the JAX gate admits the shape (at least 512 tokens, query and key lengths
 equal, head width a multiple of 8) and the kernel takes its head width (at
-most 128), and ``attention_plain`` elsewhere.  On CPU tensors K9's wrapper
-runs its plain twin.
+most 128), and ``attention_plain`` elsewhere.  With ``segment_lengths``,
+``packed_self_attention`` is block-diagonal over packed segments: K8
+(``segment_kernel.segment_attention``) where the head width is a multiple
+of 8 and at most 128, per-segment ``attention_plain`` elsewhere.  On CPU
+tensors the kernel wrappers run their plain twins.
 """
 
 from __future__ import annotations
@@ -58,20 +61,24 @@ def packed_self_attention(q, k, v, heads: int, scale: float | None = None,
                           impl: str = "auto", segment_lengths=None):
     """Self-attention over head-packed (B, N, H·D) tensors.
 
-    ``segment_lengths`` (block-diagonal attention over packed segments, the
-    JAX package's NestedTensorBlock path) is K8's function, which comes with
-    the training slice: it raises."""
-    from vda_tpu_torch.ops import attention_kernel
+    ``segment_lengths``: static per-sequence lengths of a packed batch (B
+    must be 1 and N their sum); attention is block-diagonal over the
+    segments (the JAX package's NestedTensorBlock path)."""
+    from vda_tpu_torch.ops import attention_kernel, segment_kernel
 
-    if segment_lengths is not None:
-        raise NotImplementedError(
-            "segment_lengths: block-diagonal attention over packed segments "
-            "is K8 (segment_attention), not ported yet: it comes with the "
-            "training slice")
     b, n, hd = q.shape
     d = hd // heads
     if scale is None:
         scale = d ** -0.5
+    if segment_lengths is not None:
+        if b != 1:
+            raise ValueError("segment_lengths requires a packed batch (B=1)")
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        fn = segment_kernel.segment_attention_reference
+        if impl == "auto" and d % 8 == 0 and d <= 128:
+            fn = segment_kernel.segment_attention
+        return fn(q[0], k[0], v[0], heads, scale, segment_lengths)[None]
     if _use_kernel(impl, n, k.shape[1], d):
         return attention_kernel.flash_attention_packed(q, k, v, heads, scale)
     qh, kh, vh = (t.reshape(b, -1, heads, d) for t in (q, k, v))

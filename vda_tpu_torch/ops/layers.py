@@ -70,7 +70,11 @@ _casts = WeakIdKeyDictionary()  # parameter -> (its state, its cast copy)
 def cast_once(p, dtype):
     """Parameter ``p`` as a contiguous ``dtype`` tensor, for a kernel that
     takes its weights in the working dtype.  A cast copy is made once and
-    reused until ``p`` changes, in place or by reallocation."""
+    reused until ``p`` changes, in place or by reallocation.  Where autograd
+    records and ``p`` requires grad, the cast is made anew and keeps the
+    graph: a cached copy is detached and would cut ``p``'s gradient."""
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype).contiguous()
     if p.dtype == dtype and p.is_contiguous():
         return p.detach()
     state = (dtype, p.device, p.data_ptr(), p._version)
@@ -116,6 +120,34 @@ def group_norm(p, x, num_groups: int, eps: float = 1e-6):
     y = (xc * torch.rsqrt(var + eps)).reshape(n, h, w, c)
     y = y * p.weight.float() + p.bias.float()
     return y.to(x.dtype)
+
+
+def drop_path_mask(batch: int, rate: float, generator: torch.Generator,
+                   dtype=torch.float32):
+    """The per-sample mask of stochastic depth (JAX ``layers.drop_path``):
+    a Bernoulli draw of keep = 1 - rate for each of ``batch`` samples, the
+    survivors scaled by 1/keep, in ``dtype`` on the generator's device."""
+    keep = 1.0 - rate
+    mask = (torch.rand(batch, generator=generator, device=generator.device)
+            < keep).to(dtype)
+    if keep > 0.0:
+        mask = mask / torch.tensor(keep, dtype=dtype)
+    return mask
+
+
+def apply_drop_path(x, mask):
+    """x scaled per sample (along axis 0) by a ``drop_path_mask``."""
+    return x * mask.to(x.dtype).view(-1, *(1,) * (x.dim() - 1))
+
+
+def drop_path(x, rate: float, generator: torch.Generator):
+    """Stochastic depth on a residual branch (reference
+    dinov2_layers/drop_path.py:18-35): per-sample zeroing, survivors scaled
+    by 1/keep.  Training only; identity at rate 0."""
+    if rate <= 0.0:
+        return x
+    return apply_drop_path(x, drop_path_mask(x.shape[0], rate, generator,
+                                             x.dtype))
 
 
 def conv2d(p, x, stride: int = 1, padding: int = 0):

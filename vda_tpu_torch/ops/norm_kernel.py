@@ -12,8 +12,10 @@ takes fp32 mean and centred variance there, and writes the output once, in
 the input dtype.  One program handles ``ROWS`` whole rows; the row width is
 padded to the next power of two and masked.
 
-Forward only: the backward comes with the training slice, so the wrapper
-raises if autograd would need a gradient.
+Differentiable as JAX's custom VJP (``_fln_fwd`` / ``_fln_bwd``): the
+forward is the kernel, the backward recomputes autograd through the plain
+twin on the saved (x, weight, bias); no backward kernel, as in JAX.
+``launches`` counts forward launches.
 """
 
 from __future__ import annotations
@@ -87,9 +89,41 @@ def _launch(x2d, weight, bias, eps: float):
     return y
 
 
+def _forward(x, weight, bias, eps: float):
+    c = x.shape[-1]
+    y = _launch(x.contiguous().view(-1, c), weight.detach().float().contiguous(),
+                bias.detach().float().contiguous(), eps)
+    return y.view(x.shape)
+
+
+class _FusedLayerNorm(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd through
+    ``layer_norm_reference`` on the saved inputs (JAX ``_fln_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip((x, weight, bias),
+                                      ctx.needs_input_grad[:3])]
+            y = layer_norm_reference(*ins, ctx.eps)
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None)
+
+
 def fused_layer_norm(x, weight, bias, eps: float = 1e-6):
     """LayerNorm over the last axis of x (any rank >= 2, width C % 128 == 0,
-    C <= 8192) with (C,) scale and shift.  Output dtype == x.dtype."""
+    C <= 8192) with (C,) scale and shift.  Output dtype == x.dtype.
+    Differentiable in x, weight and bias (plain recompute backward)."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, weight, bias, eps)
     if x.device.type != "cuda":
@@ -98,13 +132,12 @@ def fused_layer_norm(x, weight, bias, eps: float = 1e-6):
         raise ValueError(f"fused_layer_norm: unsupported shape {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"fused_layer_norm: unsupported dtype {x.dtype}")
+    c = x.shape[-1]
+    if weight.shape != (c,) or bias.shape != (c,) \
+            or weight.device != x.device or bias.device != x.device:
+        raise ValueError("fused_layer_norm: scale/bias must be (C,) on x's device")
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
-        raise NotImplementedError("fused_layer_norm has no backward yet")
-    c = x.shape[-1]
-    w = weight.detach().float().contiguous()
-    b = bias.detach().float().contiguous()
-    if w.shape != (c,) or b.shape != (c,) or w.device != x.device:
-        raise ValueError("fused_layer_norm: scale/bias must be (C,) on x's device")
-    y = _launch(x.contiguous().view(-1, c), w, b, float(eps))
-    return y.view(x.shape)
+        return _FusedLayerNorm.apply(x, weight, bias, float(eps))
+    # nothing to differentiate: the launch without the Function's host cost
+    return _forward(x, weight, bias, float(eps))

@@ -25,6 +25,11 @@ each thread makes 8 channels of one output pixel from four 16-byte input
 reads, so the (B, H_out, W_in, C) intermediate of the separable form never
 exists.  The input is read through its strides; the tables live on the
 device, made once per shape.
+
+Differentiable as JAX's custom VJP (``_rbf_fwd`` / ``_rbf_bwd``): the
+forward is the kernel, the backward runs autograd through the plain
+separable form (``ops/resize._apply_separable`` with the
+``_linear_matrix`` pair), no backward kernel, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import numpy as np
 import torch
 
 from vda_tpu_torch.ops import _build
-from vda_tpu_torch.ops.resize import _lerp_tables, _linear_matrix
+from vda_tpu_torch.ops.resize import (_apply_separable, _lerp_tables,
+                                      _linear_matrix)
 
 launches = 0  # kernel launches made by ``resize_bilinear_fused``
 
@@ -105,21 +111,30 @@ def resize_bilinear_fused_reference(x, out_hw):
             + m1[:, None] * rows[:, :, j1]).to(x.dtype)
 
 
-def resize_bilinear_fused(x, out_hw):
-    """K10: (B, H, W, C) bf16 -> (B, H_out, W_out, C) bf16, align_corners.
-    The caller checks ``supported`` first (on the card the wrapper raises
-    for a shape it refuses)."""
+class _ResizeBilinearFused(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd through the separable
+    matmul form on the saved input (JAX ``_rbf_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw):
+        ctx.save_for_backward(x)
+        ctx.out_hw = out_hw
+        return _launch(x, out_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        h, w = x.shape[1], x.shape[2]
+        with torch.enable_grad():
+            xi = x.detach().requires_grad_(True)
+            y = _apply_separable(xi, _linear_matrix(h, ctx.out_hw[0], True),
+                                 _linear_matrix(w, ctx.out_hw[1], True))
+            (gx,) = torch.autograd.grad(y, xi, g)
+        return gx, None
+
+
+def _launch(x, out_hw):
     global launches
-    if x.device.type == "cpu":
-        return resize_bilinear_fused_reference(x, out_hw)
-    name = "resize_bilinear_fused"
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if not supported(x, out_hw, True, None):
-        raise ValueError(f"{name}: unsupported input {tuple(x.shape)} "
-                         f"{x.dtype} -> {tuple(out_hw)}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(f"{name} has no backward yet")
     b, h, w, c = x.shape
     oh, ow = out_hw
     if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) \
@@ -133,3 +148,18 @@ def resize_bilinear_fused(x, out_hw):
     _build.check(err, "vda_resize_bilinear")
     launches += 1
     return out
+
+
+def resize_bilinear_fused(x, out_hw):
+    """K10: (B, H, W, C) bf16 -> (B, H_out, W_out, C) bf16, align_corners.
+    The caller checks ``supported`` first (on the card the wrapper raises
+    for a shape it refuses).  Differentiable in x (plain backward)."""
+    if x.device.type == "cpu":
+        return resize_bilinear_fused_reference(x, out_hw)
+    name = "resize_bilinear_fused"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if not supported(x, out_hw, True, None):
+        raise ValueError(f"{name}: unsupported input {tuple(x.shape)} "
+                         f"{x.dtype} -> {tuple(out_hw)}")
+    return _ResizeBilinearFused.apply(x, tuple(out_hw))

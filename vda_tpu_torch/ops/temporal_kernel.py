@@ -137,7 +137,10 @@ def _workspace(name, h, heads, full):
 
 
 def _ptrs(name, h, tensors):
-    """The device pointers of ``tensors``: on h's device, 16-byte aligned."""
+    """The device pointers of ``tensors``: on h's device, 16-byte aligned,
+    and not needing a gradient (the kernels have no backward)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward yet")
     for t in tensors:
         if t.device != h.device or t.data_ptr() % 16:
             raise ValueError(f"{name}: weights and pe_table must be on "
