@@ -2,14 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's ten hand-written kernels from vda_tpu_torch/csrc and
-vda_tpu_torch/ops (nvcc for sm_90a, one process a source, and the Triton
-JIT), checks each against its plain PyTorch twin at the shapes its main
-paths give it, with its time beside the least time the card could take and
-beside one PyTorch library call where one computes the same function (and
-the gradients of the two differentiable kernels, K2 and K10, against
-autograd through their plain forms), then drives each main path with every
-launch counter set to 0 just before it and read just after:
+Builds the port's fourteen hand-written kernels from vda_tpu_torch/csrc
+and vda_tpu_torch/ops (nvcc for sm_90a, one process a source, and the
+Triton JIT), checks each against its plain PyTorch twin at the shapes its
+main paths give it, with its time beside the least time the card could
+take and beside one PyTorch library call where one computes the same
+function (and the gradients of the two differentiable kernels, K2 and K10,
+against autograd through their plain forms), then drives each main path
+with every launch counter set to 0 just before it and read just after:
 
   * ``main_path``: offline windowed ``infer_video_depth`` on a vitl model
     with seeded random weights over a 54-frame 518x518 video (three
@@ -38,7 +38,16 @@ launch counter set to 0 just before it and read just after:
     warmup-cosine schedule, clipping, accumulation 2, augmentation,
     prefetch, a metrics JSONL), K2 launches asserted per step and no
     attention or temporal kernel; then a checkpoint resumed bit for bit,
-    and one step with the kernels against the all-plain step.
+    and one step from the seeded initial state with the kernels against
+    the all-plain step;
+  * ``int8``: the W8A8 linear, ``ops.quant.int8_linear`` (K11) at the
+    encoder's qkv shape on vitl's first qkv weight, bf16 and fp32
+    activations, bit-identical with its twin and within 2e-2 of the bf16
+    linear of the float weights;
+  * ``probes``: the three measurement entry points' runs
+    (``vda_tpu_torch.probes``): every K12 variant of K1 at (32, 1370,
+    3072), K13 and K11's dynamic-quant arm at (45056, 1024) @ (1024,
+    3072), K14's four stages and K6's two, each arm against its twin.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Without a CUDA device it fails at once and prints no result.  The last
@@ -64,8 +73,7 @@ sys.path.insert(0, HERE)
 N_FRAMES = 54  # three 32-frame windows: keyframe overlap and stitching run
 SIZE = 518
 N_STREAM = 48  # STREAM_MAX_CACHE + 6 streaming steps
-ZERO = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-        "K8": 0, "K9": 0, "K10": 0}
+ZERO = {f"K{i}": 0 for i in range(1, 15)}
 # vitl launches a window: K2 is two norms a block, four tap norms, and the
 # ff_norm of mm0/mm1 (K4 takes their attention sub-blocks, K3 whole blocks
 # of mm2/mm3)
@@ -104,6 +112,14 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
            "vda_tpu/ops/pallas_attention.py:112"),
     "K10": ("cuda", "vda_tpu_torch/csrc/resize_bilinear.cu",
             "vda_tpu/ops/pallas_resize.py:134"),
+    "K11": ("cuda", "vda_tpu_torch/csrc/int8_matmul.cu",
+            "vda_tpu/ops/quant.py:66"),
+    "K12": ("cuda", "vda_tpu_torch/csrc/attention_variants.cu",
+            "scripts/bench_attn_variants.py:85"),
+    "K13": ("cuda", "vda_tpu_torch/csrc/int8_matmul.cu",
+            "scripts/bench_int8_pallas.py:34"),
+    "K14": ("cuda", "vda_tpu_torch/csrc/stream_probe.cu",
+            "scripts/probe_stream_kernel.py:61"),
 }
 # Tolerances, as max |kernel - reference| over max |reference|:
 # bf16 K1/K2/K5/K6 against the twin run in fp32 on the same (bf16) inputs:
@@ -120,10 +136,17 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
 # (summation order of the softmax only).  fp32 cases: summation order only.
 # Gradients of K2 and K10: their backward is autograd through the plain
 # form on the same saved inputs, so the same gradient up to reduction
-# order: 1e-5 of the gradient's scale.
+# order: 1e-5 of the gradient's scale.  K11 is bit-exact with its twin
+# (exact int32 sums, the epilogue's steps rounded alike), K13 int8 exact;
+# K13 bf16 against the unrounded fp32 product, 2^-8 (one output rounding);
+# K12 and K14 against their twins' unrounded outputs as K1.  The W8A8 error
+# of int8_linear against the bf16 linear of the float weights: 2e-2
+# (tests/test_quant.py's bound).
 TOL = {"K1": 3.9e-3, "K2": 3.9e-3, "K3": 2e-2, "K4": 2e-2, "K5": 3.9e-3,
        "K6": 3.9e-3, "K7": 2e-2, "K8": 3.9e-3, "K9": 3.9e-3, "K10": 1e-12,
-       "fp32": 1e-4, "K8_fp32": 1e-5, "grad": 1e-5}
+       "K11": 1e-12, "K12": 3.9e-3, "K13": 1e-12, "K13_bf16": 2.0 ** -8,
+       "K14": 3.9e-3, "w8a8": 2e-2, "fp32": 1e-4, "K8_fp32": 1e-5,
+       "grad": 1e-5}
 # DINOv2's multi-crop batch (its NestedTensorBlock's input): per image 2
 # global crops of 224 (257 tokens) and 8 local crops of 98 (50 tokens)
 MULTI_CROP = (32, (2, 257), (8, 50))
@@ -133,7 +156,8 @@ TRAIN_CLIP = (1, 8, SIZE)  # B, T, side: scripts/train_throughput.py's shape
 # each output written once) over the memory rate and its operations over
 # the peak rate for their type (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 
 def emit(**kw):
@@ -463,6 +487,77 @@ def phase_kernels(model):
                   x.permute(0, 3, 1, 2), size=out_hw, mode="bilinear",
                   align_corners=True))
         del x
+
+    # K11: the kernel at the encoder's qkv product, 32 x 1370 rows of 1024
+    # -> 3072, on vitl's first qkv weight quantised and per-row quantised
+    # activations, bf16 out; bit-exact with the twin.  No PyTorch call
+    # computes the dequantised product (library_ms null); timed beside it:
+    # torch._int_mm on the same int8 operands (the product alone) and the
+    # whole int8_linear (the quantisation's plain ops and the kernel)
+    from vda_tpu_torch.ops import quant as k11
+    from vda_tpu_torch.probes import bench_attn_variants as k12
+    from vda_tpu_torch.probes import bench_int8 as k13
+    from vda_tpu_torch.probes import probe_stream_kernel as k14
+
+    lin = model.pretrained.blocks[0].attn.qkv
+    w_q, w_s = k11.quantize_weight(lin.weight.detach().t())
+    b11 = lin.bias.detach().float()
+    x = torch.randn(b, n, h * d, device="cuda", generator=g).to(bf)
+    xq, sx = k11.quantize_rows(x.reshape(-1, h * d))
+    m, kk, nn = xq.shape[0], h * d, 3 * h * d
+    int_mm = {}
+    if k13.int_mm(xq, k11.transposed(w_q)) is not None:
+        int_mm["int_mm"] = lambda: k13.int_mm(xq, k11.transposed(w_q))
+    check("K11", (m, kk, nn),
+          lambda: k11.int8_matmul(xq, w_q, sx, w_s, b11, bf),
+          lambda fp32: k11.int8_matmul_reference(xq, w_q, sx, w_s, b11, bf),
+          False, TOL["K11"], cost=(m * kk + kk * nn + 4 * m + 8 * nn
+                                   + 2 * m * nn, 2 * m * kk * nn),
+          ops_dtype=torch.int8, int8_linear=lambda: k11.int8_linear(
+              {"w_q": w_q, "w_s": w_s, "b": b11}, x), **int_mm)
+    del x, xq
+    # K12: K1's function as the variant kernel runs it, at K1's shape and
+    # bound (the other variants: phase probes)
+    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g).to(bf)
+    check("K12", qkv.shape, lambda: k12.attn(qkv, h, d ** -0.5, "full"),
+          lambda fp32: k12.attn_reference(
+              qkv, h, d ** -0.5, "full",
+              out_dtype=torch.float32 if fp32 else None), True, TOL["K12"],
+          cost=(4 * b * n * h * d * 2, 4 * b * h * n * n * d),
+          library=lambda: F.scaled_dot_product_attention(
+              *qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4),
+              scale=d ** -0.5))
+    del qkv
+    # K13 at the rate probe's shape: int8 -> int32 exact (its int32 output
+    # dominates the bytes), library torch._int_mm; bf16 against the
+    # unrounded fp32 product, library torch.matmul
+    xb, wb, xi, wi = k13.inputs(g)
+    M, K, N = k13.M, k13.K, k13.N
+    wti = k11.transposed(wi)
+    check("K13", (M, K, N), lambda: k13.matmul(xi, wi),
+          lambda fp32: k13.matmul_reference(xi, wi), False, TOL["K13"],
+          cost=(M * K + K * N + 4 * M * N, 2 * M * K * N),
+          ops_dtype=torch.int8,
+          library=(None if k13.int_mm(xi, wti) is None
+                   else lambda: k13.int_mm(xi, wti)))
+    check("K13", (M, K, N), lambda: k13.matmul(xb, wb),
+          lambda fp32: (xb.float() @ wb.float()) if fp32
+          else k13.matmul_reference(xb, wb), True, TOL["K13_bf16"],
+          cost=(2 * (M * K + K * N + M * N), 2 * M * K * N),
+          library=lambda: xb @ wb)
+    del xb, wb, xi, wi, wti
+    # K14 with all features at the probe script's shape (32 positions, 43
+    # rows, C 256, 8 heads, groups of 16): far from any bound; printed
+    # anyway
+    inputs = k14.make_inputs()
+    feats = k14.STAGES["new"]
+    bhw, rows, c, grp = k14.BHW, k14.ROWS, k14.C, k14.G
+    check("K14", (bhw, rows, c), lambda: k14.simple_kernel(feats, inputs),
+          lambda fp32: k14.simple_kernel_reference(
+              feats, inputs, out_dtype=torch.float32 if fp32
+              else torch.bfloat16), True, TOL["K14"], reps=20,
+          cost=((4 * bhw * c + 2 * bhw * rows * c + rows * c) * 2 + rows,
+                bhw * (4 * grp * rows * c + 4 * grp * c)))
 
     # fp32 at small shapes
     qkv = torch.randn(2, 200, 3 * 2 * 64, device="cuda", generator=g)
@@ -951,10 +1046,10 @@ def phase_train():
     and a metrics JSONL.  Asserts finite losses and gradient norms, changed
     parameters, K2 launches per step as the code makes them and no other
     kernel (K10's gate refuses fp32, as in JAX); resumes the last checkpoint
-    into a fresh state bit for bit; then one step from that state and one
-    batch with the kernels (attn_impl "xla") and all-plain.  Returns the
-    launches of the train run.  (The comparison is held on a batch whose
-    mask leaves 40% of the pixels valid; see below.)"""
+    into a fresh state bit for bit; then one step from the seeded initial
+    state on one batch with the kernels (attn_impl "xla") and all-plain.
+    Returns the launches of the train run.  (The comparison is held on a
+    batch whose mask leaves 40% of the pixels valid; see below.)"""
     import tempfile
 
     import vda_tpu_torch as vt
@@ -1007,11 +1102,14 @@ def phase_train():
     restore_train_state(latest_checkpoint(work), fresh)
     resumed_equal = same_state(state, fresh)
     del fresh
-    # one step from the checkpoint's state on one batch: kernels vs plain.
-    # The loss normalises each frame by its median pixel, whose gradient
-    # lands on that one pixel; with every pixel valid, the rounding by which
-    # K2 and the plain LayerNorm differ moves the median to another pixel
-    # and the gradient with it (tests/test_torch_loss.py,
+    # one step on one batch, kernels vs plain, from the seeded initial
+    # state: the trained state is not the same in every run (the metrics of
+    # steps 0-3 agree between runs to the last bit, those of steps 4-5 do
+    # not), and the loss's rank selections amplify such a difference past
+    # the bound.  The loss normalises each frame by its median pixel, whose
+    # gradient lands on that one pixel; with every pixel valid, the rounding
+    # by which K2 and the plain LayerNorm differ moves the median to another
+    # pixel and the gradient with it (tests/test_torch_loss.py,
     # test_median_gradient_sits_on_the_median_pixel), so the held
     # comparison uses a LiDAR-like mask (40% valid), where the median is a
     # zeroed invalid pixel that passes no gradient; the dense batch's gap
@@ -1022,7 +1120,7 @@ def phase_train():
     step_out = {}
     for mask_kind, bt in (("sparse", sparse), ("dense", batch)):
         for impl in ("xla", "plain"):
-            st = restore_train_state(latest_checkpoint(work), state)
+            st = init_train_state(train_model(cfg, 5), opt)
             step = make_train_step(opt, augment_hw=(SIZE, SIZE),
                                    attn_impl=impl)
             torch.cuda.synchronize()
@@ -1032,6 +1130,7 @@ def phase_train():
             step_out[mask_kind, impl] = (
                 {k: float(v) for k, v in m.items()},
                 1e3 * (time.perf_counter() - t1))
+            del st
 
     def rel_gap(mask_kind, key):
         a, b = (step_out[mask_kind, impl][0][key] for impl in ("xla", "plain"))
@@ -1069,6 +1168,89 @@ def phase_train():
     return counts
 
 
+def phase_int8(model):
+    """K11's path: ``ops.quant.int8_linear`` at the encoder's qkv shape (32
+    x 1370 tokens, 1024 -> 3072) on vitl's first qkv weight and bias, with
+    bf16 and fp32 activations: one K11 launch each, bit-identical with the
+    twin, and the W8A8 error against the bf16 linear of the float weights
+    within tests/test_quant.py's 2e-2.  Returns the launches of the two
+    calls."""
+    import torch.nn.functional as F
+
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.ops import quant
+
+    lin = model.pretrained.blocks[0].attn.qkv
+    w_q, w_s = quant.quantize_weight(lin.weight.detach().t())
+    p = {"w_q": w_q, "w_s": w_s, "b": lin.bias.detach().float()}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xs = {str(dt): torch.randn(32, 1370, 1024, device="cuda",
+                               generator=g).to(dt)
+          for dt in (torch.bfloat16, torch.float32)}
+    quant.int8_linear(p, xs["torch.bfloat16"])  # the weight's transposed copy
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ys = {k: quant.int8_linear(p, x) for k, x in xs.items()}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    res = {}
+    w_bf, b_bf = lin.weight.detach().to(torch.bfloat16), \
+        lin.bias.detach().to(torch.bfloat16)
+    for k, x in xs.items():
+        y = ys[k]
+        dense = F.linear(x.to(torch.bfloat16), w_bf, b_bf)
+        res[k] = dict(
+            shape=list(y.shape), dtype=str(y.dtype),
+            bit_identical=bool(torch.equal(y, quant.int8_linear_reference(
+                p, x))),
+            finite=bool(torch.isfinite(y).all()),
+            w8a8_max_rel_vs_bf16_linear=rel(dense, y)[1],
+            int8_linear_ms=time_ms(lambda: quant.int8_linear(p, x), 10),
+            bf16_linear_ms=time_ms(lambda: F.linear(x.to(torch.bfloat16),
+                                                    w_bf, b_bf), 10))
+    emit(phase="int8", launches=counts, **res)
+    if counts != {**ZERO, "K11": 2}:
+        raise AssertionError(f"int8 launches {counts}")
+    for k, r in res.items():
+        if not (r["bit_identical"] and r["finite"]
+                and r["shape"] == [32, 1370, 3072]
+                and r["w8a8_max_rel_vs_bf16_linear"] < TOL["w8a8"]):
+            raise AssertionError(f"int8_linear {k}: {r}")
+    return counts
+
+
+def phase_probes():
+    """The measurement kernels' path: the three probes' ``run`` as their
+    entry points run them, each arm held against its twin by the probe:
+    every K12 variant at (32, 1370, 3072), K13 (and K11's dynamic-quant arm)
+    at (45056, 1024) @ (1024, 3072), and K14's four stages with K6's two
+    stages.  Returns the launches of the three runs."""
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.probes import (bench_attn_variants, bench_int8,
+                                      probe_stream_kernel)
+
+    reps, stream_reps = 5, 20
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows = {"attn_variants": bench_attn_variants.run(reps=reps),
+            "int8": bench_int8.run(reps=reps),
+            "stream": probe_stream_kernel.run(reps=stream_reps)}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    emit(phase="probes", launches=counts, **rows)
+    # each arm: a warm-up and ``reps`` timed calls, and one checked call
+    n_variants = len(bench_attn_variants.VARIANTS)
+    want = {**ZERO, "K12": n_variants * (reps + 2), "K13": 2 * (reps + 2),
+            "K11": reps + 2, "K14": len(probe_stream_kernel.STAGES)
+            * (stream_reps + 2), "K6": 2 * (stream_reps + 2)}
+    if counts != want:
+        raise AssertionError(f"probes launches {counts} != {want}")
+    bad = [r for rs in rows.values() for r in rs if not r.get("ok", True)]
+    if bad:
+        raise AssertionError(f"probe arms disagree with their twins: {bad}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1092,7 +1274,10 @@ def main() -> int:
     cross = phase_cross_attention()
     nested = phase_nested_block(model)
     train = phase_train()
-    paths = (window, stream, vits, fused, fused_stream, cross, nested, train)
+    int8 = phase_int8(model)
+    probes = phase_probes()
+    paths = (window, stream, vits, fused, fused_stream, cross, nested, train,
+             int8, probes)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     idle = [k for k, n in launches.items() if not n]
     if idle:
@@ -1106,8 +1291,10 @@ def main() -> int:
          "bound_by": results[k]["bound_by"],
          "library_ms": results[k]["library_ms"],
          "shape": results[k]["shape"],
-         **({"split_ms": results[k]["split_ms"]} if "split_ms" in results[k]
-            else {})} for k in KERNELS]}), flush=True)
+         **{key: v for key, v in results[k].items()  # split_ms, int_mm_ms..
+            if key.endswith("_ms") and key not in
+            ("ms", "plain_ms", "bound_ms", "library_ms")}}
+        for k in KERNELS]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

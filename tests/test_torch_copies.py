@@ -1,6 +1,7 @@
 """The port's host-side copies equal their JAX-package originals, and the port
 imports neither JAX nor ``vda_tpu``."""
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -22,6 +23,9 @@ from vda_tpu_torch.infer.windowed import window_source_indices as twindows
 from vda_tpu_torch.ops import attn_proj_kernel as tattn_proj
 from vda_tpu_torch.ops import resize as tresize
 from vda_tpu_torch.ops import resize_kernel as tresize_kernel
+from vda_tpu_torch.probes import bench_attn_variants as tk12
+from vda_tpu_torch.probes import bench_int8 as tk13
+from vda_tpu_torch.probes import probe_stream_kernel as tk14
 from vda_tpu_torch.utils import transform as ttransform
 from vda_tpu.utils import transform as jtransform
 
@@ -130,6 +134,49 @@ def test_resize_gate_logic_equal(monkeypatch, case):
         jpallas_resize.supported(jx, out_hw, ac, scale)
 
 
+def _script_constants(name):
+    """Top-level literal assignments of ``scripts/<name>.py``, read from its
+    source (importing it would enable JAX's compilation cache)."""
+    with open(os.path.join(REPO, "scripts", name)) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for node in tree.body:
+        if not isinstance(node, ast.Assign):
+            continue
+        try:
+            value = ast.literal_eval(node.value)
+        except ValueError:
+            continue
+        target = node.targets[0]
+        if isinstance(target, ast.Tuple):
+            out.update(zip((t.id for t in target.elts), value))
+        elif isinstance(target, ast.Name):
+            out[target.id] = value
+    return out
+
+
+@pytest.mark.parametrize("script,module,names", [
+    ("bench_attn_variants.py", tk12, ["B", "N", "H", "D", "NP"]),
+    ("bench_int8_pallas.py", tk13, ["M", "K", "N"]),
+    ("probe_stream_kernel.py", tk14, ["BHW", "ROWS", "C", "HEADS", "G"]),
+], ids=["K12", "K13", "K14"])
+def test_probe_shapes_equal(script, module, names):
+    consts = _script_constants(script)
+    for name in names:
+        assert getattr(module, name) == consts[name], name
+
+
+def test_probe_stream_literals_equal():
+    """K14's inline literals: the valid rows (``valid[31:] = False``), the
+    mask stage's scale and K6's scale at C 1024."""
+    with open(os.path.join(REPO, "scripts", "probe_stream_kernel.py")) as f:
+        src = f.read()
+    assert f"valid[{tk14.N_VALID}:] = False" in src
+    assert f"s * {tk14.SCALE} + m_ref" in src
+    assert src.count(f"scale={tk14.SCALE_1024})") == 2
+    assert f"scale={tk14.SCALE}))" in src
+
+
 def test_port_imports_no_jax():
     code = ("import sys; import vda_tpu_torch, vda_tpu_torch.ops, "
             "vda_tpu_torch.infer.windowed, vda_tpu_torch.infer.streaming, "
@@ -141,7 +188,10 @@ def test_port_imports_no_jax():
             "vda_tpu_torch.utils.profiling, vda_tpu_torch.ops.segment_kernel, "
             "vda_tpu_torch.loss.loss, vda_tpu_torch.parallel.train, "
             "vda_tpu_torch.parallel.trainer, vda_tpu_torch.utils.augment, "
-            "vda_tpu_torch.utils.data, vda_tpu_torch.utils.checkpoint; "
+            "vda_tpu_torch.utils.data, vda_tpu_torch.utils.checkpoint, "
+            "vda_tpu_torch.ops.quant, vda_tpu_torch.probes.bench_int8, "
+            "vda_tpu_torch.probes.bench_attn_variants, "
+            "vda_tpu_torch.probes.probe_stream_kernel; "
             "bad = [m for m in sys.modules if m in ('jax', 'vda_tpu', "
             "'optax', 'orbax') or m.startswith(('jax.', 'vda_tpu.', "
             "'optax.', 'orbax.'))]; print(bad); "

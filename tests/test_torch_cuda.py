@@ -1,7 +1,7 @@
-"""The port's ten kernels against their plain twins on the card, over the
-widths the model configs give them, the gradients of K2 and K10, and one
-small forward, one small stream and two small train steps with and without
-the kernels (and with K7/K10 switched on).
+"""The port's fourteen kernels against their plain twins on the card, over
+the widths the model configs give them, the gradients of K2 and K10, and
+one small forward, one small stream and two small train steps with and
+without the kernels (and with K7/K10 switched on).
 
 Needs an NVIDIA GPU with nvcc and Triton; elsewhere every test skips.  Run
 on the GPU host from the repo root, without the JAX test configuration:
@@ -17,7 +17,12 @@ at the same points, 3.9e-3 (a summation order that flips one rounding moves
 an output by at most one bf16 ulp); bf16 K9 as K1; bf16 K7 against the
 bf16 twin, 2e-2 (the bound tests/test_attn_fuse_proj.py holds the JAX fused
 kernel to); K10 bit-exact with its twin; bf16 K8 as K1; fp32, summation
-order only, 1e-4.
+order only, 1e-4.  K11 bit-exact with its twin (exact int32 sums, the same
+rounding steps); K13 int8 exact, bf16 within 2^-8 of the scale against the
+unrounded fp32 product (one output rounding); bf16 K12 and K14 against
+their twins' unrounded outputs, 3.9e-3 (the output rounding is at most
+half a bf16 ulp of the scale; the softmax variants round exp to bf16), K12
+bf16sm 2e-2 (``bench_attn_variants.TOL_BF16SM`` says why).
 """
 
 import numpy as np
@@ -431,7 +436,8 @@ def test_forward_kernels_match_plain(gen, dtype, fused):
     assert tops.launch_counts() == {
         "K1": 0 if fused else depth, "K2": 2 * depth + 4 + 2, "K3": 2,
         "K4": 4, "K5": 0, "K6": 0, "K7": depth if fused else 0, "K8": 0,
-        "K9": 0, "K10": int(fused and dtype == BF)}
+        "K9": 0, "K10": int(fused and dtype == BF), "K11": 0, "K12": 0,
+        "K13": 0, "K14": 0}
     ref = vt.forward(model, x, attn_impl="plain")
     assert got.shape == ref.shape == (1, 8, 322, 322)
     assert float(ref.float().std()) > 0
@@ -623,3 +629,135 @@ def test_train_step_kernels_match_plain(gen):
         assert abs(a["total_loss"] - b["total_loss"]) <= \
             1e-5 * abs(b["total_loss"])
         assert abs(a["grad_norm"] - b["grad_norm"]) <= 1e-4 * b["grad_norm"]
+
+
+# K11: ragged M (against the 128-row tile), K off the 16-value chunk, N = 640
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("shape,k,n", [
+    ((3, 100), 256, 384), ((1, 512), 256, 640), ((2, 77), 200, 256),
+    ((1370,), 1024, 3072), ((5,), 40, 128)])
+def test_k11_int8_linear_bit_exact(gen, dtype, bias, shape, k, n):
+    """The kernel's int32 sums are exact and its epilogue rounds each step
+    as the twin does: bit-identical outputs."""
+    from vda_tpu_torch.ops import quant
+
+    x = torch.randn(*shape, k, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(k, n, device="cuda", generator=gen) * 0.05
+    w_q, w_s = quant.quantize_weight(w)
+    p = {"w_q": w_q, "w_s": w_s}
+    if bias:
+        p["b"] = torch.randn(n, device="cuda", generator=gen)
+    got = _launched("K11", lambda: quant.int8_linear(p, x))
+    ref = quant.int8_linear_reference(p, x)
+    assert got.dtype == dtype and got.shape == (*shape, n)
+    assert torch.equal(got, ref)
+    dense = x.float() @ w + (p["b"] if bias else 0)
+    assert _rel(dense, got) < 2e-2  # tests/test_quant.py's W8A8 bound
+
+
+def test_k11_k13_refuse_what_the_kernels_do_not_take(gen):
+    from vda_tpu_torch.ops import quant
+    from vda_tpu_torch.probes import bench_int8
+
+    x = torch.randn(10, 64, device="cuda", generator=gen)
+    w_q, w_s = quant.quantize_weight(torch.randn(64, 256, device="cuda",
+                                                 generator=gen))
+    with pytest.raises(ValueError):  # N % 128, as in JAX
+        quant.int8_linear({"w_q": w_q[:, :200], "w_s": w_s[:200]}, x)
+    with pytest.raises(ValueError):  # fp16 activations
+        quant.int8_linear({"w_q": w_q, "w_s": w_s}, x.half())
+    with pytest.raises(ValueError):  # weights not int8
+        quant.int8_linear({"w_q": w_q.float(), "w_s": w_s}, x)
+    with pytest.raises(ValueError):  # weights on the CPU
+        quant.int8_linear({"w_q": w_q.cpu(), "w_s": w_s.cpu()}, x)
+    xi = torch.randint(-127, 127, (64, 40), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    wi = torch.randint(-127, 127, (40, 128), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    with pytest.raises(ValueError):  # K % 16
+        bench_int8.matmul(xi, wi)
+    with pytest.raises(ValueError):  # mixed dtypes
+        bench_int8.matmul(xi[:, :32].contiguous(), wi[:32].bfloat16())
+
+
+@pytest.mark.parametrize("m,k,n", [(45056 // 8, 1024, 3072), (100, 64, 136),
+                                   (257, 512, 1024)])
+def test_k13_matmul(gen, m, k, n):
+    from vda_tpu_torch.probes import bench_int8
+
+    xi = torch.randint(-127, 127, (m, k), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    wi = torch.randint(-127, 127, (k, n), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    got = _launched("K13", lambda: bench_int8.matmul(xi, wi))
+    assert got.dtype == torch.int32
+    assert torch.equal(got, bench_int8.matmul_reference(xi, wi))
+    xb = torch.randn(m, k, device="cuda", generator=gen).to(BF)
+    wb = torch.randn(k, n, device="cuda", generator=gen).to(BF)
+    got = _launched("K13", lambda: bench_int8.matmul(xb, wb))
+    ref = xb.float() @ wb.float()  # unrounded: the kernel rounds once
+    assert got.dtype == BF and _rel(ref, got) < 2.0 ** -8
+
+
+# K12: the function variants over head widths 8-128, the geometry variants
+# (the vitl tiling's alternatives) over 8-64; ragged N; 3 heads, so two
+# heads a block leaves a group without a head
+@pytest.mark.parametrize("variant", ["full", "matmul", "nomask", "fp32exp",
+                                     "bf16sm", "exp2", "bq128", "bk32",
+                                     "bk128", "heads2"])
+@pytest.mark.parametrize("n", [100, 257, 1370])
+@pytest.mark.parametrize("dh", [8, 40, 64, 80, 128])
+def test_k12_attention_variants(gen, variant, n, dh):
+    from vda_tpu_torch.probes import bench_attn_variants as k12
+
+    heads = 3
+    qkv = torch.randn(2, n, 3 * heads * dh, device="cuda", generator=gen)
+    qkv = qkv.to(BF)
+    if dh > 64 and variant in k12.GEOMETRY:
+        with pytest.raises(ValueError):
+            k12.attn(qkv, heads, dh ** -0.5, variant)
+        return
+    got = _launched("K12", lambda: k12.attn(qkv, heads, dh ** -0.5, variant))
+    np_len = -(-n // 64) * 64
+    ref = k12.attn_reference(qkv, heads, dh ** -0.5, k12.VARIANTS[variant][1],
+                             np_len, torch.float32)
+    assert got.shape == (2, n, heads * dh)
+    assert _rel(ref, got) < k12.tolerance(variant)
+
+
+def test_k12_full_is_k1_and_refusals(gen):
+    """The full variant is K1's loop with K1's defaults: bit-identical with
+    K1 on the same input."""
+    from vda_tpu_torch.probes import bench_attn_variants as k12
+
+    qkv = torch.randn(4, 1370, 3 * 16 * 64, device="cuda", generator=gen)
+    qkv = qkv.to(BF)
+    a = _launched("K12", lambda: k12.attn(qkv, 16, 0.125, "full"))
+    b = _launched("K1", lambda: attention_kernel.flash_attention_qkv(
+        qkv, 16, 0.125))
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError):  # fp32
+        k12.attn(qkv.float(), 16, 0.125, "full")
+    with pytest.raises(ValueError):  # a key count that is not 64-aligned
+        k12.attn(qkv, 16, 0.125, "nomask", np_len=1400)
+    with pytest.raises(ValueError):  # fewer keys than tokens
+        k12.attn(qkv, 16, 0.125, "nomask", np_len=1344)
+
+
+@pytest.mark.parametrize("stage", ["dot2", "mask", "pe", "new"])
+def test_k14_stream_probe_stages(gen, stage):
+    """Each stage at the script's shape and at a wider one (C 1024, 16
+    heads of 64, groups of 8), against the twin's unrounded output."""
+    from vda_tpu_torch.probes import probe_stream_kernel as k14
+
+    feats = k14.STAGES[stage]
+    for bhw, c, heads, group in ((32, 256, 8, 16), (40, 1024, 16, 8)):
+        inputs = k14.make_inputs(bhw, c)
+        got = _launched("K14", lambda: k14.simple_kernel(
+            feats, inputs, heads=heads, group=group))
+        ref = k14.simple_kernel_reference(feats, inputs, heads=heads,
+                                          group=group, out_dtype=F32)
+        assert _rel(ref, got) < TOL[BF]
+    with pytest.raises(ValueError):  # positions not a multiple of the group
+        k14.simple_kernel(feats, k14.make_inputs(24, 256))

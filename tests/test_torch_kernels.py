@@ -34,7 +34,8 @@ def counters_at_rest():
     yield
     assert tops.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
                                     "K5": 0, "K6": 0, "K7": 0, "K8": 0,
-                                    "K9": 0, "K10": 0}
+                                    "K9": 0, "K10": 0, "K11": 0, "K12": 0,
+                                    "K13": 0, "K14": 0}
 
 
 def _t(a):

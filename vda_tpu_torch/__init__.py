@@ -9,9 +9,11 @@ device: ``video_depth_loss`` (``loss/``), ``make_optimizer`` /
 ``train`` loop with metrics, prefetch and checkpoint resume
 (``parallel/trainer.py``, ``utils/data.py``, ``utils/checkpoint.py``,
 ``utils/augment.py``), and ``models/dinov2.block_apply_nested`` for
-multi-crop batches.  Plain tensor code is PyTorch; the ten TPU kernels of
-those paths are hand-written Hopper kernels, each beside a plain PyTorch
-twin:
+multi-crop batches; the kernel-level W8A8 int8 linear (``ops/quant.py``,
+which the model does not call, as in JAX) and the on-card measurement
+probes (``probes/``).  Plain tensor code is PyTorch; the fourteen TPU
+kernels of the JAX package are hand-written Hopper kernels, each beside a
+plain PyTorch twin:
 
   * K1 / K9 ``ops/attention_kernel.py`` + ``csrc/attention_qkv.cu``:
     attention read in place from the fused qkv projection / over separate
@@ -34,6 +36,14 @@ twin:
   * K10 ``ops/resize_kernel.py`` + ``csrc/resize_bilinear.cu``: the output
     tail's bf16 bilinear upsamples (``resize_kernel=True``); differentiable,
     its backward the plain separable form, as in JAX
+  * K11 ``ops/quant.py`` + ``csrc/int8_matmul.cu``: the W8A8 linear's int8
+    product with its dequantising epilogue (``int8_linear``)
+  * K12 ``probes/bench_attn_variants.py`` + ``csrc/attention_variants.cu``:
+    K1's loop with one piece ablated or its tiling changed
+  * K13 ``probes/bench_int8.py`` + ``csrc/int8_matmul.cu``: the int8 and
+    bf16 rate probe's tiled product
+  * K14 ``probes/probe_stream_kernel.py`` + ``csrc/stream_probe.cu``: K6's
+    features one at a time
 
 The package never imports JAX or ``vda_tpu``; the JAX package is the
 reference its tests hold it to.

@@ -1,5 +1,6 @@
 // The flash-attention loop of one head over one 64-row query tile, shared by
-// K1/K9 (attention_qkv.cu) and K7 (attention_proj.cu).
+// K1/K9 (attention_qkv.cu), K7 (attention_proj.cu), K8
+// (segment_attention.cu) and, in its variants, K12 (attention_variants.cu).
 //
 // q, k and v point at the head's first column of batch row 0 of their
 // tensors; consecutive tokens are `rs` elements apart (3*H*D when they are
@@ -86,37 +87,82 @@ __device__ __forceinline__ void load_b(uint32_t (&r)[4], const bf16* rows,
               false);
 }
 
-// Shared memory of the bf16 loop: Q (64, DP) and two K and two V tiles,
-// rows padded by 16 bytes so the 8 rows an ldmatrix reads hit 8 distinct
-// groups of 4 banks.
-template <int DP>
+// The function and tiling of the bf16 loop.  K1, K7, K8 and K9 run
+// Default; the others are K12's ablations of it (attention_variants.cu):
+//   kMatmul      P = bf16(S * scale) over the valid keys, no max, no exp,
+//                no normalisation (l = 1)
+//   kNoMask      no key compare: the loop runs over valid_len keys, which
+//                the caller sets to the padded key count, and keys at or
+//                beyond n take part as zero rows (score 0, value 0)
+//   kFp32Exp     accurate fp32 exp; the row sum adds the unrounded values
+//   kBf16Softmax scores rounded to bf16, the max over bf16 values, the
+//                shifted score rounded to bf16, times log2 e rounded to
+//                bf16 again, exponentiated by ex2.approx.bf16x2
+//   kExp2        the max over unscaled scores, exp2 of (s - m) * scale *
+//                log2 e as one FMA and ex2.approx (the scale folded in)
+// and the tiling: bq query rows a head (16 a warp, so bq / 16 warps), bk
+// key rows a K/V tile, and `heads` head groups of bq / 16 warps in a block,
+// each on its own head and its own shared memory.
+enum class Fn { kFull, kMatmul, kNoMask, kFp32Exp, kBf16Softmax, kExp2 };
+
+template <Fn F = Fn::kFull, int BQ_ = BQ, int BK_ = BK, int HEADS_ = 1>
+struct Variant {
+  static constexpr Fn fn = F;
+  static constexpr int bq = BQ_;
+  static constexpr int bk = BK_;
+  static constexpr int heads = HEADS_;
+  static constexpr int nt = BQ_ * 2;  // threads of a head group
+};
+using Default = Variant<>;
+
+// Shared memory of the bf16 loop, per head group: Q (bq, DP) and two K and
+// two V tiles, rows padded by 16 bytes so the 8 rows an ldmatrix reads hit
+// 8 distinct groups of 4 banks.
+template <int DP, class V = Default>
 struct Bf16Tiles {
   static constexpr int LD = DP + 8;
-  static constexpr size_t bytes = sizeof(bf16) * (BQ + 4 * BK) * LD;
+  static constexpr size_t bytes = sizeof(bf16) * (V::bq + 4 * V::bk) * LD;
 };
 
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t ex2_approx_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
 // One head, bf16.  Calls store(r, col, v0, v1) with the normalised outputs
-// of local query row r (0..63) at head columns col and col + 1 (col even,
+// of local query row r (0..bq-1) at head columns col and col + 1 (col even,
 // col < d); rows at or beyond n are handed over too (their queries are
-// zero) and the caller drops them.
-template <int DP, typename Store>
+// zero) and the caller drops them.  `tiles` is this head group's shared
+// memory.
+template <int DP, class V = Default, typename Store>
 __device__ __forceinline__ void attend_bf16(const bf16* q, const bf16* k,
                                             const bf16* v, size_t rs, int n,
                                             int d, int valid_len, float scale,
                                             int q0, bf16* tiles, Store store) {
-  constexpr int LD = Bf16Tiles<DP>::LD;
+  constexpr Fn FN = V::fn;
+  constexpr int TQ = V::bq, TK = V::bk, NTH = V::nt;
+  constexpr int LD = Bf16Tiles<DP, V>::LD;
   constexpr int KD = DP / 16;  // k-steps of the score product
   bf16* qs = tiles;
-  bf16* ks = qs + BQ * LD;      // two tiles
-  bf16* vs = ks + 2 * BK * LD;  // two tiles
+  bf16* ks = qs + TQ * LD;      // two tiles
+  bf16* vs = ks + 2 * TK * LD;  // two tiles
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = V::heads == 1 ? static_cast<int>(threadIdx.x)
+                                : static_cast<int>(threadIdx.x) % NTH;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
 
-  // 64 rows of one head into a (64, DP) tile; rows at or beyond n and
+  // `rows` rows of one head into a (rows, DP) tile; rows at or beyond n and
   // columns at or beyond d are zero-filled.
-  auto load = [&](bf16* dst, const bf16* src, int row0) {
-    for (int i = tid; i < 64 * (DP / 8); i += NT) {
+  auto load = [&](bf16* dst, const bf16* src, int row0, int rows) {
+    for (int i = tid; i < rows * (DP / 8); i += NTH) {
       const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
       const bool ok = row0 + r < n && c < d;
       const bf16* s = ok ? src + static_cast<size_t>(row0 + r) * rs + c : src;
@@ -124,9 +170,9 @@ __device__ __forceinline__ void attend_bf16(const bf16* q, const bf16* k,
     }
   };
 
-  load(qs, q, q0);
-  load(ks, k, 0);
-  load(vs, v, 0);
+  load(qs, q, q0, TQ);
+  load(ks, k, 0, TK);
+  load(vs, v, 0, TK);
   __pipeline_commit();
 
   uint32_t qf[KD][4];
@@ -134,13 +180,15 @@ __device__ __forceinline__ void attend_bf16(const bf16* q, const bf16* k,
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  // kExp2: (s - m) * scale * log2 e = fma(s, sl2, -m * sl2)
+  const float sl2 = scale * 1.4426950408889634f;
 
-  const int n_tiles = (valid_len + BK - 1) / BK;
+  const int n_tiles = (valid_len + TK - 1) / TK;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int buf = kt & 1;
     if (kt + 1 < n_tiles) {
-      load(ks + (buf ^ 1) * BK * LD, k, (kt + 1) * BK);
-      load(vs + (buf ^ 1) * BK * LD, v, (kt + 1) * BK);
+      load(ks + (buf ^ 1) * TK * LD, k, (kt + 1) * TK, TK);
+      load(vs + (buf ^ 1) * TK * LD, v, (kt + 1) * TK, TK);
       __pipeline_commit();
       __pipeline_wait_prior(1);
     } else {
@@ -152,17 +200,18 @@ __device__ __forceinline__ void attend_bf16(const bf16* q, const bf16* k,
       for (int kk = 0; kk < KD; ++kk)
         load_a(qf[kk], qs + warp * 16 * LD, LD, kk * 16, lane);
     }
-    const bf16* kb = ks + buf * BK * LD;
-    const bf16* vb = vs + buf * BK * LD;
+    const bf16* kb = ks + buf * TK * LD;
+    const bf16* vb = vs + buf * TK * LD;
 
-    // S (16, 64) = Q K^T: eight 8-key n-tiles
-    float s[8][4];
+    // S (16, TK) = Q K^T: TK / 8 n-tiles of 8 keys
+    float s[TK / 8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < TK / 8; ++j)
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < TK / 16; ++jj) {
         uint32_t kf[4];  // keys 16jj.. (two n-tiles), dims 16kk..
         load_b(kf, kb + jj * 16 * LD, LD, kk * 16, lane);
         mma_bf16(s[2 * jj], qf[kk], kf[0], kf[1]);
@@ -172,52 +221,102 @@ __device__ __forceinline__ void attend_bf16(const bf16* q, const bf16* k,
 
     // online softmax; this thread holds rows g (e = 0, 1) and g + 8
     // (e = 2, 3), columns 8j + 2t + (e & 1); a row's 4 threads share a quad
-    const int kvalid = valid_len - kt * BK;
+    const int kvalid = valid_len - kt * TK;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < TK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float val =
-            j * 8 + 2 * t + (e & 1) < kvalid ? s[j][e] * scale : -INFINITY;
+        const bool in = j * 8 + 2 * t + (e & 1) < kvalid;
+        float val;
+        if constexpr (FN == Fn::kNoMask)
+          val = s[j][e] * scale;
+        else if constexpr (FN == Fn::kMatmul)
+          val = in ? s[j][e] * scale : 0.f;
+        else if constexpr (FN == Fn::kExp2)
+          val = in ? s[j][e] : -INFINITY;
+        else if constexpr (FN == Fn::kBf16Softmax)
+          val = in ? round_t<bf16>(s[j][e] * scale) : -INFINITY;
+        else
+          val = in ? s[j][e] * scale : -INFINITY;
         s[j][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
     float alpha[2];
+    if constexpr (FN != Fn::kMatmul) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);  // finite: kvalid >= 1
-      alpha[r] = expf(m_r[r] - m_new);           // 0 on the first tile
-      m_r[r] = m_new;
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);  // finite: kvalid >= 1
+        if constexpr (FN == Fn::kExp2)
+          alpha[r] = ex2_approx((m_r[r] - m_new) * sl2);
+        else
+          alpha[r] = expf(m_r[r] - m_new);  // 0 on the first tile
+        m_r[r] = m_new;
+      }
     }
-    uint32_t pf[4][4];  // P as the A operand, one per 16 keys
+    uint32_t pf[TK / 16][4];  // P as the A operand, one per 16 keys
     float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      bf16 p[4];
+    for (int j = 0; j < TK / 8; ++j) {
+      if constexpr (FN == Fn::kBf16Softmax) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = __float2bfloat16(__expf(s[j][e] - m_r[e >> 1]));
-        sum[e >> 1] += __bfloat162float(p[e]);
+        for (int r = 0; r < 2; ++r) {
+          // the scores and the max are bf16 values already; their
+          // difference rounds to bf16, and its product with log2 e (in
+          // fp32: log2 e itself is 0.18% off in bf16) rounds again
+          const __nv_bfloat162 d2 =
+              __hsub2(__floats2bfloat162_rn(s[j][2 * r], s[j][2 * r + 1]),
+                      __float2bfloat162_rn(m_r[r]));
+          __nv_bfloat162 d2l =
+              __floats2bfloat162_rn(__low2float(d2) * 1.4426950408889634f,
+                                    __high2float(d2) * 1.4426950408889634f);
+          const uint32_t p2 =
+              ex2_approx_bf16x2(*reinterpret_cast<uint32_t*>(&d2l));
+          pf[j / 2][(j % 2) * 2 + r] = p2;
+          const __nv_bfloat162 pv =
+              *reinterpret_cast<const __nv_bfloat162*>(&p2);
+          sum[r] += __low2float(pv) + __high2float(pv);
+        }
+      } else {
+        bf16 p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (FN == Fn::kMatmul) {
+            p[e] = __float2bfloat16(s[j][e]);
+          } else if constexpr (FN == Fn::kFp32Exp) {
+            const float pe = expf(s[j][e] - m_r[e >> 1]);
+            p[e] = __float2bfloat16(pe);
+            sum[e >> 1] += pe;
+          } else if constexpr (FN == Fn::kExp2) {
+            p[e] = __float2bfloat16(
+                ex2_approx(fmaf(s[j][e], sl2, -m_r[e >> 1] * sl2)));
+            sum[e >> 1] += __bfloat162float(p[e]);
+          } else {
+            p[e] = __float2bfloat16(__expf(s[j][e] - m_r[e >> 1]));
+            sum[e >> 1] += __bfloat162float(p[e]);
+          }
+        }
+        pf[j / 2][(j % 2) * 2] = pack(p[0], p[1]);      // row g
+        pf[j / 2][(j % 2) * 2 + 1] = pack(p[2], p[3]);  // row g + 8
       }
-      pf[j / 2][(j % 2) * 2] = pack(p[0], p[1]);      // row g
-      pf[j / 2][(j % 2) * 2 + 1] = pack(p[2], p[3]);  // row g + 8
     }
+    if constexpr (FN != Fn::kMatmul) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
+      for (int j = 0; j < DP / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
     }
 
     // O (16, DP) += P V: V read transposed by ldmatrix
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < TK / 16; ++kk) {
 #pragma unroll
       for (int jd = 0; jd < DP / 16; ++jd) {
         uint32_t vf[4];  // keys 16kk.., dims 16jd.. (two n-tiles)
@@ -232,10 +331,14 @@ __device__ __forceinline__ void attend_bf16(const bf16* q, const bf16* k,
     __syncthreads();  // every warp is done with buffer buf before refilling
   }
 
+  if constexpr (FN == Fn::kMatmul) {
+    l_r[0] = l_r[1] = 1.f;
+  } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    }
   }
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {

@@ -64,6 +64,15 @@ _SIGNATURES = {
     # q, k, v, out, tiles, n_tiles, heads, D, row_stride, scale, is_bf16,
     # stream
     "vda_segment_attention": [_P] * 5 + [_I] * 3 + [_I64, _F, _I, _P],
+    # xq, wt, sx, sw, b, out, M, N, K, out_bf16, stream
+    "vda_int8_linear": [_P] * 6 + [_I] * 4 + [_P],
+    # a, bt, out, M, N, K, is_bf16, stream
+    "vda_matmul_probe": [_P] * 3 + [_I] * 4 + [_P],
+    # q, k, v, out, B, N, H, D, row_stride, valid_len, scale, variant, stream
+    "vda_attention_variant": [_P] * 4 + [_I] * 4 + [_I64, _I, _F, _I, _P],
+    # q, k_new, v_new, k_buf, v_buf, pe, valid, out, BHW, rows, C, heads,
+    # group, scale, features, stream
+    "vda_stream_probe": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
 }
 
 build_seconds = None  # wall time of the nvcc run in this process, if any

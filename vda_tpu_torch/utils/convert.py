@@ -60,6 +60,15 @@ def load_cross_attention_numpy(module: torch.nn.Module,
     return module
 
 
+def load_int8_params_numpy(params: Dict, device="cuda") -> Dict:
+    """The JAX package's int8 linear params (``quantize_weight``'s ``w_q``
+    (K, N) int8 and ``w_s`` (N,), an optional bias "b"; numpy or JAX
+    arrays) as the tensors ``ops.quant.int8_linear`` takes, dtypes kept,
+    on ``device``."""
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in params.items()}
+
+
 @torch.no_grad()
 def init_random(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> VideoDepthAnything:
