@@ -47,7 +47,20 @@ with every launch counter set to 0 just before it and read just after:
   * ``probes``: the three measurement entry points' runs
     (``vda_tpu_torch.probes``): every K12 variant of K1 at (32, 1370,
     3072), K13 and K11's dynamic-quant arm at (45056, 1024) @ (1024,
-    3072), K14's four stages and K6's two, each arm against its twin.
+    3072), K14's four stages and K6's two, each arm against its twin;
+  * ``host_sync``: a steady ``StreamingDepth.submit`` with the device held
+    by ``torch.cuda._sleep`` (~50 ms, or three times an idle submit's host
+    time if longer) returns in less host time than the sleep (vits; vitl's
+    numbers printed beside), and a steady vitl submit
+    and a vitl window ``forward`` make no synchronising call under
+    ``torch.cuda.set_sync_debug_mode("error")``.
+
+K1 and K9 (bf16, head width 64) run the Hopper loop
+(csrc/flash_attention_sm90.cuh: TMA, wgmma, warp specialisation): their
+``kernel_vs_plain`` lines carry the old mma.sync loop's time on the same
+values (``mma_sync_ms``, K12 ``full``) and the largest |new - old|, and
+every K1 launch of the vitl window, the vitl stream and the vits window is
+asserted to have gone through it (``attention_kernel.launches_by_loop``).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Without a CUDA device it fails at once and prints no result.  The last
@@ -238,6 +251,15 @@ def phase_build():
          triton_jit_s=round(time.perf_counter() - t0, 3))
 
 
+def by_loop_ok(counts) -> bool:
+    """Every K1/K9 launch since the counters were reset went through the
+    Hopper loop."""
+    from vda_tpu_torch.ops import attention_kernel
+
+    return attention_kernel.launches_by_loop == {
+        "sm90": counts["K1"] + counts["K9"], "sm80": 0}
+
+
 def phase_kernels(model):
     """Each kernel against its plain twin at the main-path shapes in bf16,
     and at a small shape in fp32.  Returns per-kernel results: the first
@@ -263,9 +285,15 @@ def phase_kernels(model):
         """cost: (bytes, operations) of the call, the operations at the peak
         rate of ``ops_dtype`` (default: the output's); library: one PyTorch
         call computing the same function, timed as a yardstick only; timed:
-        other calls to time beside it, by name."""
+        other calls to time beside it, by name (``mma_sync``: the old loop
+        on the same values, whose largest difference from the kernel is
+        printed too)."""
         got = kern()
         ref = twin(fp32=twin_inputs_fp32)
+        extra = {}
+        if "mma_sync" in timed:
+            extra["max_abs_vs_mma_sync"] = float(
+                (got.float() - timed["mma_sync"]().float()).abs().max())
         torch.cuda.synchronize()
         err, r = rel(ref, got)
         if not torch.isfinite(got).all():
@@ -275,7 +303,8 @@ def phase_kernels(model):
                    plain_ms=time_ms(lambda: twin(fp32=False), reps),
                    library_ms=None if library is None
                    else time_ms(library, reps),
-                   **{f"{k}_ms": time_ms(f, reps) for k, f in timed.items()})
+                   **{f"{k}_ms": time_ms(f, reps) for k, f in timed.items()},
+                   **extra)
         if cost is not None:
             res["bound_ms"], res["bound_by"] = bound(*cost,
                                                      ops_dtype or got.dtype)
@@ -288,17 +317,28 @@ def phase_kernels(model):
             results[name] = res
         return res
 
-    # K1: encoder attention, (B*T, N, 3*H*D) = (32, 1370, 3072), 16 heads
+    from vda_tpu_torch.probes import bench_attn_variants as k12
+
+    # K1: encoder attention on the Hopper loop, (B*T, N, 3*H*D) = (32, 1370,
+    # 3072), 16 heads (the vitl window), then the vitl stream step (1, 1370,
+    # 3072: 8 x 16 = 128 blocks of 192 query rows for 132 SMs) and the vits
+    # window (32, 1370, 1152: 6 heads); the old mma.sync loop (K12 "full")
+    # timed beside it on the same values
+    def k1_case(b, n, h, d=64):
+        qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g).to(bf)
+        heads_view = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        check("K1", qkv.shape,
+              lambda: k1.flash_attention_qkv(qkv, h, d ** -0.5),
+              lambda fp32: k1.flash_attention_qkv_reference(
+                  qkv.float() if fp32 else qkv, h, d ** -0.5), True,
+              TOL["K1"], cost=(4 * b * n * h * d * 2, 4 * b * h * n * n * d),
+              library=lambda: F.scaled_dot_product_attention(
+                  *heads_view, scale=d ** -0.5),
+              mma_sync=lambda: k12.attn(qkv, h, d ** -0.5, "full"))
+
     b, n, h, d = 32, 1370, 16, 64
-    qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g).to(bf)
-    heads_view = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
-    check("K1", qkv.shape, lambda: k1.flash_attention_qkv(qkv, h, d ** -0.5),
-          lambda fp32: k1.flash_attention_qkv_reference(
-              qkv.float() if fp32 else qkv, h, d ** -0.5), True, TOL["K1"],
-          cost=(4 * b * n * h * d * 2, 4 * b * h * n * n * d),
-          library=lambda: F.scaled_dot_product_attention(
-              *heads_view, scale=d ** -0.5))
-    del qkv, heads_view
+    for shape in ((32, 1370, 16), (1, 1370, 16), (32, 1370, 6)):
+        k1_case(*shape)
     # K2: the encoder LayerNorm (eps 1e-6) and the mm0 ff_norm (eps 1e-5)
     for shape, eps in (((32, 1370, 1024), 1e-6), ((1369, 32, 1024), 1e-5)):
         x = (torch.randn(*shape, device="cuda", generator=g) * 2 + 0.5).to(bf)
@@ -427,6 +467,7 @@ def phase_kernels(model):
     # (32, 1370, 1024) tensors, 16 heads
     q, k, v = (torch.randn(b, n, h * d, device="cuda", generator=g).to(bf)
                for _ in range(3))
+    qkv9 = torch.cat([q, k, v], dim=-1)  # the old loop reads fused rows
     check("K9", (b, n, h * d),
           lambda: k1.flash_attention_packed(q, k, v, h, d ** -0.5),
           lambda fp32: k1.flash_attention_packed_reference(
@@ -435,8 +476,12 @@ def phase_kernels(model):
           cost=(4 * b * n * h * d * 2, 4 * b * h * n * n * d),
           library=lambda: F.scaled_dot_product_attention(
               *(t.view(b, n, h, d).transpose(1, 2) for t in (q, k, v)),
-              scale=d ** -0.5))
-    del q, k, v
+              scale=d ** -0.5),
+          mma_sync=lambda: k12.attn(qkv9, h, d ** -0.5, "full"))
+    k9 = k1.flash_attention_packed(q, k, v, h, d ** -0.5)
+    if not torch.equal(k9, k1.flash_attention_qkv(qkv9, h, d ** -0.5)):
+        raise AssertionError("K9 and K1 differ on the same values")
+    del q, k, v, qkv9, k9
 
     # K8: block-diagonal attention at vitl widths (16 heads of 64) over the
     # segments of DINOv2's multi-crop batch, q, k and v column slices of one
@@ -495,7 +540,6 @@ def phase_kernels(model):
     # torch._int_mm on the same int8 operands (the product alone) and the
     # whole int8_linear (the quantisation's plain ops and the kernel)
     from vda_tpu_torch.ops import quant as k11
-    from vda_tpu_torch.probes import bench_attn_variants as k12
     from vda_tpu_torch.probes import bench_int8 as k13
     from vda_tpu_torch.probes import probe_stream_kernel as k14
 
@@ -666,6 +710,9 @@ def phase_main_path(model):
     want = {k: v * n_windows for k, v in PER_WINDOW.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
+    if not by_loop_ok(counts):
+        raise AssertionError("a K1 launch of the window missed the Hopper "
+                             "loop")
     if depths.shape != (N_FRAMES, SIZE, SIZE):
         raise AssertionError(f"depth shape {depths.shape}")
     if not np.isfinite(depths).all() or not depths.std() > 0:
@@ -725,9 +772,10 @@ def phase_stream(model, frames):
             counts = ops.launch_counts()
             want = {**PER_STEP, "K5": 8 if i == 0 else 0,
                     "K6": 8 if i and name == "ctx" else 0}
-            if counts != want:
+            if counts != want or not by_loop_ok(counts):
                 raise AssertionError(f"stream {name} step {i}: launches "
-                                     f"{counts} != {want}")
+                                     f"{counts} != {want}, or a K1 launch "
+                                     "missed the Hopper loop")
             total = {k: total[k] + counts[k] for k in total}
             d = depth[name]
             if d.shape != (SIZE, SIZE) or not torch.isfinite(d).all():
@@ -790,8 +838,9 @@ def phase_vits_window(frames):
     got = vt.forward(model, x)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    if counts != PER_VITS_WINDOW:
-        raise AssertionError(f"vits launches {counts} != {PER_VITS_WINDOW}")
+    if counts != PER_VITS_WINDOW or not by_loop_ok(counts):
+        raise AssertionError(f"vits launches {counts} != {PER_VITS_WINDOW}, "
+                             "or a K1 launch missed the Hopper loop")
     window_ms = time_ms(lambda: vt.forward(model, x), reps=3)
     plain_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
                        reps=2)
@@ -1251,6 +1300,100 @@ def phase_probes():
     return counts
 
 
+def sleep_cycles(ms: float) -> int:
+    """GPU clock cycles of ``torch.cuda._sleep`` that last about ``ms``,
+    measured on this card."""
+    n = 10_000_000
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(n)
+    end.record()
+    torch.cuda.synchronize()
+    return int(n * ms / start.elapsed_time(end))
+
+
+def held_submit(stream, frame) -> dict:
+    """One ``submit`` of a numpy frame (staged through the pinned buffers)
+    with the device held by ``torch.cuda._sleep`` enqueued first, for ~50
+    ms or three times the host time of a submit with the device idle,
+    whichever is longer (a wait for the device inside ``submit`` makes its
+    host time exceed the hold, however long; the longer hold keeps a slow
+    host's own work from looking like one): the host ms of the call beside
+    the sleep's device ms, the host ms until the step is done, the idle
+    submit's host ms, and the kernels the step enqueued."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream.submit(frame)
+    idle_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    cycles = sleep_cycles(max(50.0, 3 * idle_ms))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    t0 = time.perf_counter()
+    stream.submit(frame)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    done_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stream.submit(frame)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type.name == "CUDA")
+    return dict(sleep_ms=start.elapsed_time(end), submit_host_ms=host_ms,
+                step_done_ms=done_ms, idle_submit_host_ms=idle_ms,
+                kernels_a_step=kernels)
+
+
+def phase_host_sync(model, frames):
+    """The host never waits for the device inside a steady ``submit`` or a
+    window ``forward``.  (1) With the device held by ``torch.cuda._sleep``
+    (~50 ms, longer on a slow host: ``held_submit``), a steady vits
+    ``submit`` returns in less host time than the sleep.  The same is printed for vitl; its step enqueues
+    more kernels than CUDA's launch queue holds (~1000), so there the host
+    waits for queue room, not for a synchronising call.  (2) A steady vitl
+    ``submit`` and a vitl window ``forward`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
+    that makes the host wait for the device."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    vits = vt.init_random(vt.get_config("vits"),
+                          torch.Generator(device="cuda").manual_seed(0))
+    vits.requires_grad_(False)
+    held = {}
+    streams = {}
+    for name, m in (("vits", vits), ("vitl", model)):
+        streams[name] = vt.StreamingDepth(m)
+        for f in frames[:3]:  # steps 0-2: buffers and caches made
+            streams[name].submit(f)
+        torch.cuda.synchronize()
+        held[name] = held_submit(streams[name], frames[3])
+    x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
+                          (SIZE, SIZE), dtype=torch.bfloat16)
+    vt.forward(model, x)
+    torch.cuda.synchronize()
+    checked = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        streams["vitl"].submit(frames[5])
+        checked.append("vitl steady submit")
+        vt.forward(model, x)
+        checked.append("vitl window forward")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        emit(phase="host_sync", held=held, sync_debug_error_clean=checked)
+    h = held["vits"]
+    if not h["submit_host_ms"] < h["sleep_ms"]:
+        raise AssertionError(f"a steady vits submit waited for the device: "
+                             f"{h}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1276,6 +1419,7 @@ def main() -> int:
     train = phase_train()
     int8 = phase_int8(model)
     probes = phase_probes()
+    phase_host_sync(model, frames)
     paths = (window, stream, vits, fused, fused_stream, cross, nested, train,
              int8, probes)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}

@@ -6,17 +6,33 @@
 // projection (B, N, 3*H*D): q, q + H*D and q + 2*H*D with a row stride of
 // 3*H*D.  K9 replaces flash_attention_packed (the same kernel body over three
 // separate tensors): the same entry point with three pointers and a row
-// stride of H*D.  One device loop (flash_attention.cuh) serves both.
+// stride of H*D.  One entry point, and for each shape one device loop,
+// serves both, so K1 and K9 are bit-identical on the same values.
 //
 // The TPU kernel held a whole head's K and V in VMEM (~350 KB at N=1370); a
-// block here may hold 227 KB, so this is a flash attention: one block of 4
-// warps per (64-row query tile, head, batch) walks 64-row K/V tiles with an
-// online softmax (flash_attention.cuh says how).  The output (B, N, H*D) is
-// contiguous.
+// block here may hold 227 KB, so this is a flash attention that walks K/V
+// tiles with an online softmax.  The loop is chosen by (dtype, head width)
+// alone (vda_attention_loop):
+//   * bf16 at head width 64, every encoder the repo has: the Hopper loop of
+//     flash_attention_sm90.cuh (TMA, wgmma, a producer warpgroup and three
+//     consumer warpgroups of 64 query rows; SM90 below is its tiling);
+//   * the other widths K1 takes (multiples of 8 up to 128) and fp32: the
+//     mma.sync / scalar loops of flash_attention.cuh, one block of 4 warps
+//     per (64-row query tile, head, batch).
+// The output (B, N, H*D) is contiguous.
 
 #include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace vda {
+
+// The tiling of the Hopper loop, the fastest of the steps that
+// probes/bench_attn_sm90.py times (attention_sm90_variants.cu): K/V tiles
+// of 128 keys in a ring of 2 stages, three consumer warpgroups (192 query
+// rows a block) that each wait for a product before the softmax and
+// overlap one another, and the row sums of P taken by the tensor core.
+using SM90 = sm90::Config<128, 3, 2, false, false, sm90::Mode::kFull, 0, true>;
+
 namespace {
 
 using namespace flash;
@@ -95,9 +111,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 }  // namespace vda
 
+// The loop vda_attention runs for head width d: 90 (the Hopper loop) for
+// bf16 at d = 64, 80 (the mma.sync or fp32 loop) otherwise.
+extern "C" int vda_attention_loop(int d, int is_bf16) {
+  return is_bf16 && d == vda::sm90::D ? 90 : 80;
+}
+
 // q, k, v: row 0 of batch 0, 16-byte aligned; token t of batch b at
 // x + (b * n + t) * row_stride (a multiple of 8 elements).  out: contiguous
-// (B, N, H*D).
+// (B, N, H*D).  The Hopper loop needs scale > 0.
 extern "C" int vda_attention(const void* q, const void* k, const void* v,
                              void* out, int b, int n, int heads, int d,
                              long long row_stride, int valid_len, float scale,
@@ -108,6 +130,9 @@ extern "C" int vda_attention(const void* q, const void* k, const void* v,
   const size_t rs = static_cast<size_t>(row_stride);
   const bool bf = is_bf16 != 0;
   const auto st = static_cast<cudaStream_t>(stream);
+  if (vda_attention_loop(d, is_bf16) == 90)
+    return vda::sm90::launch<vda::SM90>(q, k, v, out, b, n, heads, rs,
+                                        valid_len, scale, st);
   switch (vda::flash::padded_width(d)) {
     case 16: return vda::launch<16>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);
     case 32: return vda::launch<32>(q, k, v, out, b, n, heads, d, rs, valid_len, scale, bf, st);

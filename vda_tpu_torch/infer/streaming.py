@@ -20,6 +20,12 @@ instead of a one-hot product, and the new rows are written into the
 buffers in place.  The ring/direct/slide flavors, ``submit_group``, the
 tensor-parallel mesh and the ``VDA_STREAM_*`` environment knobs are not
 ported: ``ctx_kernel`` and ``cache_dtype`` are arguments only.
+
+``submit`` returns without waiting for the device, as JAX's does: the frame
+and the context row ids reach the card by non-blocking copies from pinned
+host buffers (``_Upload``), and the resize matrices and normalisation
+constants come from device caches, so a steady step makes no synchronising
+call.
 """
 
 from __future__ import annotations
@@ -50,6 +56,41 @@ _CTX = INFER_LEN - 1  # 31 context entries
 # margin (checked by _advance_bookkeeping).
 _RING = STREAM_MAX_CACHE + 2
 _BUF_ROWS = _RING + 1
+
+
+class _Upload:
+    """Host-to-device copies that do not make the host wait: each host
+    tensor is staged in one of two pinned buffers, used in turn, and copied
+    with ``non_blocking=True``.  Before a buffer is refilled the host waits
+    on the event recorded after its previous copy (the copy of two calls
+    ago), since overwriting a pinned buffer while its copy is in flight
+    would corrupt that copy.  On a device other than CUDA (the CPU, whose
+    PyTorch may be built without CUDA and cannot pin) the tensor is moved
+    as it is."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.slots = [None, None]  # (pinned buffer, event after its copy)
+        self.turn = 0
+
+    def __call__(self, host: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda" or host.device.type != "cpu":
+            return host.to(self.device)
+        slot, self.turn = self.slots[self.turn], self.turn ^ 1
+        buf = None
+        if slot is not None:
+            buf, event = slot
+            event.synchronize()
+            if buf.shape != host.shape or buf.dtype != host.dtype:
+                buf = None
+        if buf is None:
+            buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        buf.copy_(host)
+        out = buf.to(self.device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self.slots[self.turn ^ 1] = (buf, event)
+        return out
 
 
 def _row(entry_id: int) -> int:
@@ -194,6 +235,8 @@ class StreamingDepth:
         self.cache_dtype = cache_dtype
         self.ctx_kernel = bool(ctx_kernel)
         self.fuse_proj = bool(fuse_proj)
+        self._upload_frame = _Upload(self.device)
+        self._upload_rows = _Upload(self.device)
         self.reset()
 
     def reset(self) -> None:
@@ -215,7 +258,7 @@ class StreamingDepth:
         depth as an (H, W) fp32 tensor on the model's device.  The host does
         not wait for this frame's work to finish; reading the tensor
         does."""
-        frame_u8 = torch.as_tensor(frame).to(self.device)
+        frame_u8 = self._upload_frame(torch.as_tensor(frame))
         step_id = self.id + 1
         if self.net_hw is None:
             h, w = frame_u8.shape[:2]
@@ -239,7 +282,7 @@ class StreamingDepth:
         # bookkeeping on a copy, committed once the step has run
         order = list(self.order)
         ctx, new_id = _advance_bookkeeping(step_id, order)
-        ctx_rows = torch.tensor([_row(i) for i in ctx], device=self.device)
+        ctx_rows = self._upload_rows(torch.tensor([_row(i) for i in ctx]))
         depth, rows = _stream_step(
             self.model, frame_u8, self.buffers, self.scales, ctx_rows,
             self.net_hw, self.out_hw, self.dtype, self.attn_impl,

@@ -38,6 +38,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     attention_kernel.launches = 0
     attention_kernel.launches_packed = 0
+    attention_kernel.launches_by_loop = dict.fromkeys(
+        attention_kernel.launches_by_loop, 0)
     attn_proj_kernel.launches = 0
     norm_kernel.launches = 0
     quant.launches = 0

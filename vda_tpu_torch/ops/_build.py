@@ -39,6 +39,11 @@ _I64 = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, out, B, N, H, D, row_stride, valid_len, scale, is_bf16, stream
     "vda_attention": [_P] * 4 + [_I] * 4 + [_I64, _I, _F, _I, _P],
+    # D, is_bf16 -> 90 (the Hopper loop) or 80
+    "vda_attention_loop": [_I, _I],
+    # q, k, v, out, B, N, H, row_stride, valid_len, scale, variant, stream
+    "vda_attention_sm90_variant": [_P] * 4 + [_I] * 3
+    + [_I64, _I, _F, _I, _P],
     # qkv, w, gamma_bias, x, out, ws, B, N, H, D, valid_len, scale, is_bf16,
     # stream
     "vda_attention_proj": [_P] * 6 + [_I] * 5 + [_F, _I, _P],

@@ -7,26 +7,42 @@ heads of 64.  K9 replaces ``flash_attention_packed``, the same function over
 three separate (B, N, H·D) tensors, which ``ops/attention.py`` and the
 generic attention library reach for N >= 512.
 
-What bounds them on the H100: the (N, N) scores.  Materialised in fp32 they
-are 32·16·1370² · 4 B = 3.8 GB a layer, written and re-read several times by
-the plain form.  The TPU kernel kept a whole head's K and V resident in VMEM
-(~350 KB at N=1370), which does not fit the 227 KB a block may hold here, so
-the kernel (``csrc/attention_qkv.cu`` with the loop of
-``csrc/flash_attention.cuh``) is a flash attention: one block per (batch,
-head, 64-row query tile) walks 64-row K/V tiles, double-buffered in shared
-memory by cp.async, with an online softmax (fp32 running max and sum, fp32
-accumulator, normalised once at the end).  In bf16 each warp keeps its 16
-query rows' scores, probabilities and output accumulator in registers and
-runs the products on the tensor cores (``mma.sync`` m16n8k16, fp32
-accumulate, operands by ``ldmatrix``): scores never leave registers.  fp32
-input takes a scalar-FMA path through shared memory.  The one C entry point
-takes a q, a k and a v pointer and one row stride: K1 passes column offsets
-0, H·D and 2·H·D of the fused tensor with a stride of 3·H·D, so nothing is
-copied or transposed first; K9 passes its three tensors.  N is taken
-unpadded and the ragged last K tile masked.
+What bounds them on the H100: the tensor cores, once the (N, N) scores
+stay on chip.  Materialised in fp32 they are 32·16·1370² · 4 B = 3.8 GB a
+layer, written and re-read several times by the plain form; kept on chip,
+the call moves 0.36 GB against 246 GFLOP (0.107 ms of bytes against 0.249
+ms of operations at vitl).  The TPU kernel kept a whole head's K and V
+resident in VMEM (~350 KB at N=1370), which does not fit the 227 KB a block
+may hold here, so the kernel (``csrc/attention_qkv.cu``) is a flash
+attention: one block per (batch, head, query tile) walks K/V tiles with an
+online softmax (fp32 running max and sum, fp32 accumulator, normalised once
+at the end).  The C entry point picks the device loop by (dtype, head
+width) alone (``loop_of``):
+
+* bf16 at head width 64, every encoder config: the Hopper loop
+  (``csrc/flash_attention_sm90.cuh``).  A producer warpgroup streams K/V
+  tiles of 128 keys by TMA into a 2-stage ring guarded by mbarriers; three
+  consumer warpgroups of 64 query rows each (192 rows a block) run Q·Kᵀ and
+  P·V by ``wgmma`` (P from registers, its row sums by the tensor core too)
+  and the online softmax in registers, one consumer's exponentials running
+  under another's products.
+* other head widths (multiples of 8 up to 128) and fp32: the loop of
+  ``csrc/flash_attention.cuh`` (one block of 4 warps per 64-row query tile,
+  ``mma.sync`` m16n8k16 on ``ldmatrix`` operands double-buffered by
+  cp.async in bf16; scalar FMAs through shared memory in fp32), which K7,
+  K8 and K12 also run.
+
+The one C entry point takes a q, a k and a v pointer and one row stride: K1
+passes column offsets 0, H·D and 2·H·D of the fused tensor with a stride of
+3·H·D, so nothing is copied or transposed first; K9 passes its three
+tensors.  N is taken unpadded and keys at or beyond ``valid_len`` masked.
+Launches are counted by kernel (``launches``, ``launches_packed``) and by
+loop (``launches_by_loop``: "sm90" the Hopper loop, "sm80" the other).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,11 +51,21 @@ from vda_tpu_torch.ops.attention import attention_plain
 
 launches = 0         # K1 launches made by ``flash_attention_qkv``
 launches_packed = 0  # K9 launches made by ``flash_attention_packed``
+launches_by_loop = {"sm90": 0, "sm80": 0}  # K1 and K9 launches by loop
 
 
 def kernel_supported(heads: int, dh: int) -> bool:
     """Head widths the kernel takes: a multiple of 8, at most 128."""
     return dh % 8 == 0 and 0 < dh <= 128
+
+
+@functools.lru_cache(maxsize=None)
+def loop_of(dtype, dh: int) -> str:
+    """The device loop the C entry point runs for ``dtype`` at head width
+    ``dh``, as it reports it (``vda_attention_loop``): "sm90" or "sm80"."""
+    code = _build.library().vda_attention_loop(
+        dh, int(dtype == torch.bfloat16))
+    return "sm90" if code == 90 else "sm80"
 
 
 def use_kernel(n: int, dh: int) -> bool:
@@ -85,6 +111,7 @@ def _launch(name, q, k, v, heads, scale, valid_len, row_stride):
         heads, hd // heads, row_stride, valid_len, float(scale),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(err, "vda_attention")
+    launches_by_loop[loop_of(q.dtype, hd // heads)] += 1
     return out
 
 

@@ -11,6 +11,10 @@ applied as two einsums, H then W, exactly as ``_apply_separable`` does:
 
 fp32 input contracts in fp32; bf16 input contracts with bf16 matrices and
 fp32 accumulation, rounding between the two passes, as on the JAX side.
+The matrices live on the device in a cache keyed by (kind, sizes,
+align_corners, scale, device, dtype) (``device_matrix``): the first call at
+a size uploads them, and every later one issues no host-to-device copy,
+which would make the host wait for the device.
 The two-tap tables ``_lerp_tables`` (a copy too) feed K10
 (``resize_kernel.py``), which ``resize_bilinear(kernel=True)`` reaches.
 """
@@ -81,11 +85,26 @@ def _cubic_matrix(in_size: int, out_size: int, align_corners: bool,
     return m.astype(np.float32)
 
 
-def _apply_separable(x, mh: np.ndarray, mw: np.ndarray):
-    """Apply per-axis (out, in) matrices to (..., H, W, C) input."""
+_MATRICES = {"linear": _linear_matrix, "cubic": _cubic_matrix}
+
+
+@functools.lru_cache(maxsize=256)
+def device_matrix(kind: str, in_size: int, out_size: int,
+                  align_corners: bool, scale: float | None, device,
+                  dtype) -> torch.Tensor:
+    """The (out, in) matrix of ``kind`` ("linear" or "cubic") in ``dtype``
+    on ``device``, uploaded once; the same tensor for the same key.  Callers
+    do not modify it."""
+    m = _MATRICES[kind](in_size, out_size, align_corners, scale)
+    return torch.from_numpy(m).to(device, dtype)
+
+
+def _apply_separable(x, h_key: tuple, w_key: tuple):
+    """Apply per-axis (out, in) matrices to (..., H, W, C) input; each key
+    is (kind, in, out, align_corners, scale) of ``device_matrix``."""
     dtype = x.dtype if x.dtype == torch.bfloat16 else torch.float32
-    a_h = torch.from_numpy(mh).to(x.device, dtype)
-    a_w = torch.from_numpy(mw).to(x.device, dtype)
+    a_h = device_matrix(*h_key, x.device, dtype)
+    a_w = device_matrix(*w_key, x.device, dtype)
     y = torch.einsum("oh,...hwc->...owc", a_h, x.to(dtype))
     y = torch.einsum("pw,...owc->...opc", a_w, y)
     return y.to(x.dtype)
@@ -118,8 +137,8 @@ def resize_bilinear(x, out_hw, align_corners: bool = True,
         return x
     if kernel and resize_kernel.supported(x, out_hw, align_corners, None):
         return resize_kernel.resize_bilinear_fused(x, out_hw)
-    return _apply_separable(x, _linear_matrix(h, oh, align_corners),
-                            _linear_matrix(w, ow, align_corners))
+    return _apply_separable(x, ("linear", h, oh, align_corners, None),
+                            ("linear", w, ow, align_corners, None))
 
 
 def resize_bicubic(x, out_hw, align_corners: bool = False, scale=None):
@@ -130,5 +149,5 @@ def resize_bicubic(x, out_hw, align_corners: bool = False, scale=None):
     if (oh, ow) == (h, w) and scale is None:
         return x  # the interpolation matrix is the identity
     sh, sw = (scale if scale is not None else (None, None))
-    return _apply_separable(x, _cubic_matrix(h, oh, align_corners, sh),
-                            _cubic_matrix(w, ow, align_corners, sw))
+    return _apply_separable(x, ("cubic", h, oh, align_corners, sh),
+                            ("cubic", w, ow, align_corners, sw))

@@ -127,8 +127,8 @@ class _ResizeBilinearFused(torch.autograd.Function):
         h, w = x.shape[1], x.shape[2]
         with torch.enable_grad():
             xi = x.detach().requires_grad_(True)
-            y = _apply_separable(xi, _linear_matrix(h, ctx.out_hw[0], True),
-                                 _linear_matrix(w, ctx.out_hw[1], True))
+            y = _apply_separable(xi, ("linear", h, ctx.out_hw[0], True, None),
+                                 ("linear", w, ctx.out_hw[1], True, None))
             (gx,) = torch.autograd.grad(y, xi, g)
         return gx, None
 

@@ -7,6 +7,8 @@ normalisation on the device, batched over the window.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -48,11 +50,18 @@ def effective_input_size(height: int, width: int, input_size: int) -> int:
     return input_size
 
 
+@functools.lru_cache(maxsize=None)
+def imagenet_stats(device) -> tuple:
+    """ImageNet (mean, std) as fp32 tensors on ``device``, uploaded once (a
+    host-to-device copy at every call would make the host wait)."""
+    return (torch.tensor(IMAGENET_MEAN, device=device),
+            torch.tensor(IMAGENET_STD, device=device))
+
+
 def preprocess_frames(frames_u8, out_hw, dtype=torch.float32):
     """uint8 (..., H, W, 3) frames -> normalised (..., h, w, 3) in ``dtype``:
     /255, cv2-exact bicubic resize, ImageNet normalisation, all in fp32."""
     x = frames_u8.float() / 255.0
     x = resize_bicubic(x, out_hw)
-    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.tensor(IMAGENET_STD, device=x.device)
+    mean, std = imagenet_stats(x.device)
     return ((x - mean) / std).to(dtype)
