@@ -61,6 +61,12 @@ K1 and K9 (bf16, head width 64) run the Hopper loop
 values (``mma_sync_ms``, K12 ``full``) and the largest |new - old|, and
 every K1 launch of the vitl window, the vitl stream and the vits window is
 asserted to have gone through it (``attention_kernel.launches_by_loop``).
+K11 and K13 run the Hopper GEMM mainloop (csrc/gemm_sm90.cuh): their lines
+carry the old mma.sync loop's time on the same values (``mma_sync_ms``,
+``probes.bench_gemm_sm90``'s ``mma_sync`` step) and the largest |new -
+old|, K11 is checked at a ragged shape too, and every K11/K13 launch of
+phases ``kernels``, ``int8`` and ``probes`` is asserted to have run it
+(``quant.gemm_launches_by_loop``).
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 Without a CUDA device it fails at once and prints no result.  The last
@@ -258,6 +264,16 @@ def by_loop_ok(counts) -> bool:
 
     return attention_kernel.launches_by_loop == {
         "sm90": counts["K1"] + counts["K9"], "sm80": 0}
+
+
+def gemm_by_loop_ok(counts, loops, since=None) -> bool:
+    """Every K11/K13 launch counted in ``counts`` ran the Hopper GEMM loop:
+    ``loops`` is ``quant.gemm_launches_by_loop`` read with ``counts``, and
+    ``since`` (default: zeros, the counters reset) its value when ``counts``
+    began."""
+    base = since or dict.fromkeys(loops, 0)
+    got = {k: v - base[k] for k, v in loops.items()}
+    return got == {"sm90": counts["K11"] + counts["K13"], "sm80": 0}
 
 
 def phase_kernels(model):
@@ -537,11 +553,17 @@ def phase_kernels(model):
     # -> 3072, on vitl's first qkv weight quantised and per-row quantised
     # activations, bf16 out; bit-exact with the twin.  No PyTorch call
     # computes the dequantised product (library_ms null); timed beside it:
-    # torch._int_mm on the same int8 operands (the product alone) and the
-    # whole int8_linear (the quantisation's plain ops and the kernel)
+    # torch._int_mm on the same int8 operands (the product alone), the
+    # whole int8_linear (the quantisation's plain ops and the kernel) and
+    # the old mma.sync loop on the same values (the GEMM probe's step)
+    from vda_tpu_torch import ops
     from vda_tpu_torch.ops import quant as k11
+    from vda_tpu_torch.probes import bench_gemm_sm90 as gemm90
     from vda_tpu_torch.probes import bench_int8 as k13
     from vda_tpu_torch.probes import probe_stream_kernel as k14
+
+    gemm_counts0 = ops.launch_counts()
+    gemm_loops0 = dict(k11.gemm_launches_by_loop)
 
     lin = model.pretrained.blocks[0].attn.qkv
     w_q, w_s = k11.quantize_weight(lin.weight.detach().t())
@@ -558,8 +580,29 @@ def phase_kernels(model):
           False, TOL["K11"], cost=(m * kk + kk * nn + 4 * m + 8 * nn
                                    + 2 * m * nn, 2 * m * kk * nn),
           ops_dtype=torch.int8, int8_linear=lambda: k11.int8_linear(
-              {"w_q": w_q, "w_s": w_s, "b": b11}, x), **int_mm)
+              {"w_q": w_q, "w_s": w_s, "b": b11}, x), **int_mm,
+          mma_sync=lambda: gemm90.gemm("k11", xq, k11.transposed(w_q),
+                                       "mma_sync", sx, w_s, b11))
     del x, xq
+    # K11 ragged: M = 3 x 1370 + 1 rows (not a multiple of the 128-row
+    # tile), N = 640 (not a multiple of the 256-column tile)
+    mr, nr = 3 * 1370 + 1, 640
+    xr = torch.randint(-127, 127, (mr, kk), device="cuda", generator=g,
+                       dtype=torch.int8)
+    wr = torch.randint(-127, 127, (kk, nr), device="cuda", generator=g,
+                       dtype=torch.int8)
+    sxr = torch.rand(mr, 1, device="cuda", generator=g) / 127
+    swr = torch.rand(nr, device="cuda", generator=g) / 127
+    br = torch.randn(nr, device="cuda", generator=g)
+    check("K11", (mr, kk, nr),
+          lambda: k11.int8_matmul(xr, wr, sxr, swr, br, bf),
+          lambda fp32: k11.int8_matmul_reference(xr, wr, sxr, swr, br, bf),
+          False, TOL["K11"], cost=(mr * kk + kk * nr + 4 * mr + 8 * nr
+                                   + 2 * mr * nr, 2 * mr * kk * nr),
+          ops_dtype=torch.int8,
+          mma_sync=lambda: gemm90.gemm("k11", xr, k11.transposed(wr),
+                                       "mma_sync", sxr, swr, br))
+    del xr, wr
     # K12: K1's function as the variant kernel runs it, at K1's shape and
     # bound (the other variants: phase probes)
     qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g).to(bf)
@@ -578,18 +621,29 @@ def phase_kernels(model):
     xb, wb, xi, wi = k13.inputs(g)
     M, K, N = k13.M, k13.K, k13.N
     wti = k11.transposed(wi)
+    wtb = k11.transposed(wb)
     check("K13", (M, K, N), lambda: k13.matmul(xi, wi),
           lambda fp32: k13.matmul_reference(xi, wi), False, TOL["K13"],
           cost=(M * K + K * N + 4 * M * N, 2 * M * K * N),
           ops_dtype=torch.int8,
           library=(None if k13.int_mm(xi, wti) is None
-                   else lambda: k13.int_mm(xi, wti)))
+                   else lambda: k13.int_mm(xi, wti)),
+          mma_sync=lambda: gemm90.gemm("k13_int8", xi, wti, "mma_sync"))
     check("K13", (M, K, N), lambda: k13.matmul(xb, wb),
           lambda fp32: (xb.float() @ wb.float()) if fp32
           else k13.matmul_reference(xb, wb), True, TOL["K13_bf16"],
           cost=(2 * (M * K + K * N + M * N), 2 * M * K * N),
-          library=lambda: xb @ wb)
-    del xb, wb, xi, wi, wti
+          library=lambda: xb @ wb,
+          mma_sync=lambda: gemm90.gemm("k13_bf16", xb, wtb, "mma_sync"))
+    del xb, wb, xi, wi, wti, wtb
+    torch.cuda.synchronize()
+    gemm_counts = {k: v - gemm_counts0[k]
+                   for k, v in ops.launch_counts().items()}
+    if not gemm_by_loop_ok(gemm_counts, k11.gemm_launches_by_loop,
+                           since=gemm_loops0):
+        raise AssertionError(f"K11/K13 launches off the Hopper GEMM loop: "
+                             f"{k11.gemm_launches_by_loop} since "
+                             f"{gemm_loops0}, counts {gemm_counts}")
     # K14 with all features at the probe script's shape (32 positions, 43
     # rows, C 256, 8 heads, groups of 16): far from any bound; printed
     # anyway
@@ -1242,6 +1296,7 @@ def phase_int8(model):
     ys = {k: quant.int8_linear(p, x) for k, x in xs.items()}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    loops = dict(quant.gemm_launches_by_loop)
     res = {}
     w_bf, b_bf = lin.weight.detach().to(torch.bfloat16), \
         lin.bias.detach().to(torch.bfloat16)
@@ -1257,9 +1312,9 @@ def phase_int8(model):
             int8_linear_ms=time_ms(lambda: quant.int8_linear(p, x), 10),
             bf16_linear_ms=time_ms(lambda: F.linear(x.to(torch.bfloat16),
                                                     w_bf, b_bf), 10))
-    emit(phase="int8", launches=counts, **res)
-    if counts != {**ZERO, "K11": 2}:
-        raise AssertionError(f"int8 launches {counts}")
+    emit(phase="int8", launches=counts, gemm_launches_by_loop=loops, **res)
+    if counts != {**ZERO, "K11": 2} or not gemm_by_loop_ok(counts, loops):
+        raise AssertionError(f"int8 launches {counts}, by loop {loops}")
     for k, r in res.items():
         if not (r["bit_identical"] and r["finite"]
                 and r["shape"] == [32, 1370, 3072]
@@ -1275,6 +1330,7 @@ def phase_probes():
     at (45056, 1024) @ (1024, 3072), and K14's four stages with K6's two
     stages.  Returns the launches of the three runs."""
     from vda_tpu_torch import ops
+    from vda_tpu_torch.ops import quant
     from vda_tpu_torch.probes import (bench_attn_variants, bench_int8,
                                       probe_stream_kernel)
 
@@ -1286,14 +1342,17 @@ def phase_probes():
             "stream": probe_stream_kernel.run(reps=stream_reps)}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    emit(phase="probes", launches=counts, **rows)
+    loops = dict(quant.gemm_launches_by_loop)
+    emit(phase="probes", launches=counts, gemm_launches_by_loop=loops,
+         **rows)
     # each arm: a warm-up and ``reps`` timed calls, and one checked call
     n_variants = len(bench_attn_variants.VARIANTS)
     want = {**ZERO, "K12": n_variants * (reps + 2), "K13": 2 * (reps + 2),
             "K11": reps + 2, "K14": len(probe_stream_kernel.STAGES)
             * (stream_reps + 2), "K6": 2 * (stream_reps + 2)}
-    if counts != want:
-        raise AssertionError(f"probes launches {counts} != {want}")
+    if counts != want or not gemm_by_loop_ok(counts, loops):
+        raise AssertionError(f"probes launches {counts} != {want}, GEMM by "
+                             f"loop {loops}")
     bad = [r for rs in rows.values() for r in rs if not r.get("ok", True)]
     if bad:
         raise AssertionError(f"probe arms disagree with their twins: {bad}")

@@ -45,6 +45,7 @@ from vda_tpu_torch.ops import (
     tiny_seq_kernel,
 )
 from vda_tpu_torch.ops.resize import resize_bilinear
+from vda_tpu_torch.probes.bench_gemm_sm90 import VARIANTS as GEMM_VARIANTS
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +76,18 @@ def _launched(name, fn):
     after = tops.launch_counts()
     assert after[name] == before[name] + 1
     assert all(after[k] == before[k] for k in after if k != name)
+    return out
+
+
+def _on_gemm_loop(name, fn):
+    """fn()'s result, checking that it made one launch of ``name`` (K11 or
+    K13) and that the launch ran the Hopper GEMM loop."""
+    from vda_tpu_torch.ops import quant
+
+    before = dict(quant.gemm_launches_by_loop)
+    out = _launched(name, fn)
+    assert quant.gemm_launches_by_loop == {"sm90": before["sm90"] + 1,
+                                           "sm80": before["sm80"]}
     return out
 
 
@@ -697,7 +710,7 @@ def test_k11_int8_linear_bit_exact(gen, dtype, bias, shape, k, n):
     p = {"w_q": w_q, "w_s": w_s}
     if bias:
         p["b"] = torch.randn(n, device="cuda", generator=gen)
-    got = _launched("K11", lambda: quant.int8_linear(p, x))
+    got = _on_gemm_loop("K11", lambda: quant.int8_linear(p, x))
     ref = quant.int8_linear_reference(p, x)
     assert got.dtype == dtype and got.shape == (*shape, n)
     assert torch.equal(got, ref)
@@ -739,14 +752,92 @@ def test_k13_matmul(gen, m, k, n):
                        dtype=torch.int8)
     wi = torch.randint(-127, 127, (k, n), device="cuda", generator=gen,
                        dtype=torch.int8)
-    got = _launched("K13", lambda: bench_int8.matmul(xi, wi))
+    got = _on_gemm_loop("K13", lambda: bench_int8.matmul(xi, wi))
     assert got.dtype == torch.int32
     assert torch.equal(got, bench_int8.matmul_reference(xi, wi))
     xb = torch.randn(m, k, device="cuda", generator=gen).to(BF)
     wb = torch.randn(k, n, device="cuda", generator=gen).to(BF)
-    got = _launched("K13", lambda: bench_int8.matmul(xb, wb))
+    got = _on_gemm_loop("K13", lambda: bench_int8.matmul(xb, wb))
     ref = xb.float() @ wb.float()  # unrounded: the kernel rounds once
     assert got.dtype == BF and _rel(ref, got) < 2.0 ** -8
+
+
+# The Hopper GEMM loop at edges of its 128 x 256 tiles and 128-byte stages
+# of k: M 1, 129 and K11's 43840 rows; N 136 (K13 only: K11 takes N % 128),
+# 640 and 3072; rows of 16, 48 and 1040 bytes (int8 16, 48, 1040 values;
+# bf16 8, 24, 520)
+GEMM_M, GEMM_N, GEMM_KB = (1, 129, 43840), (136, 640, 3072), (16, 48, 1040)
+
+
+@pytest.mark.parametrize("kb", GEMM_KB)
+@pytest.mark.parametrize("n", GEMM_N)
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("dtype", [torch.int8, BF])
+def test_k13_ragged_on_the_hopper_loop(gen, dtype, m, n, kb):
+    from vda_tpu_torch.probes import bench_int8
+
+    k = kb // (2 if dtype == BF else 1)
+    if dtype == BF:
+        x = torch.randn(m, k, device="cuda", generator=gen).to(BF)
+        w = torch.randn(k, n, device="cuda", generator=gen).to(BF)
+    else:
+        x = torch.randint(-127, 127, (m, k), device="cuda", generator=gen,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 127, (k, n), device="cuda", generator=gen,
+                          dtype=torch.int8)
+    got = _on_gemm_loop("K13", lambda: bench_int8.matmul(x, w))
+    assert got.shape == (m, n)
+    if dtype == BF:
+        assert _rel(x.float() @ w.float(), got) < 2.0 ** -8
+    else:
+        assert torch.equal(got, bench_int8.matmul_reference(x, w))
+
+
+@pytest.mark.parametrize("out_dtype", [BF, F32])
+@pytest.mark.parametrize("kb", GEMM_KB)
+@pytest.mark.parametrize("n", [n for n in GEMM_N if n % 128 == 0])
+@pytest.mark.parametrize("m", GEMM_M)
+def test_k11_ragged_on_the_hopper_loop(gen, m, n, kb, out_dtype):
+    """K11 on int8 operands as they come: bit-identical with the twin."""
+    from vda_tpu_torch.ops import quant
+
+    xq = torch.randint(-127, 127, (m, kb), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 127, (kb, n), device="cuda", generator=gen,
+                       dtype=torch.int8)
+    sx = torch.rand(m, 1, device="cuda", generator=gen) / 127
+    sw = torch.rand(n, device="cuda", generator=gen) / 127
+    b = torch.randn(n, device="cuda", generator=gen)
+    got = _on_gemm_loop("K11", lambda: quant.int8_matmul(
+        xq, wq, sx, sw, b, out_dtype))
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, quant.int8_matmul_reference(xq, wq, sx, sw, b,
+                                                        out_dtype))
+
+
+@pytest.mark.parametrize("variant", list(GEMM_VARIANTS))
+@pytest.mark.parametrize("kind", ["k13_int8", "k13_bf16", "k11"])
+def test_gemm_design_steps_agree_with_their_twins(gen, kind, variant):
+    """Every step of probes/bench_gemm_sm90.py at a shape ragged in M, N
+    and K (129 rows, 640 columns, 1040 bytes of k); the steps that write
+    nothing (or store zeroed staging) leave a zeroed output at zero."""
+    from vda_tpu_torch.probes import bench_gemm_sm90 as bg
+
+    m, n = 129, 640
+    a, bt, sx, sw, b = bg.operands(kind, gen, m, 1040 // (
+        2 if kind == "k13_bf16" else 1), n)
+    out = torch.zeros(m, n, device="cuda", dtype=torch.int32
+                      if kind == "k13_int8" else BF)
+    got = bg.gemm(kind, a, bt, variant, sx, sw, b, out)
+    torch.cuda.synchronize()
+    if variant in bg.WRITE_NOTHING:
+        ref = torch.zeros_like(out)
+    elif kind == "k13_bf16":
+        ref = a.float() @ bt.float().t()
+    else:
+        ref = bg.gemm_reference(kind, a, bt, sx, sw, b)
+    ok, _ = bg.agrees(kind, variant, got, ref)
+    assert ok
 
 
 # K12: the function variants over head widths 8-128, the geometry variants

@@ -10,252 +10,36 @@
 // What bounds them on the H100: at the encoder's qkv shape, (43840, 1024) x
 // (1024, 3072), the operations (2.8e11 at 1979 TOP/s int8, 0.14 ms) against
 // ~0.32 GB of bytes (0.095 ms); K13's int8 product writes int32, 0.55 GB,
-// so the bytes bind it.  The design is the plain tensor-core GEMM of
-// Ampere, first right and simple: a 128 x 128 output tile a block of 8
-// warps (each 64 x 32), k in 64-byte stages that cp.async triple-buffers in
-// shared memory, operands by ldmatrix, mma.sync m16n8k32 (int8, int32
-// sums) or m16n8k16 (bf16, fp32 sums).  wgmma and TMA come later.
-//
-// One mainloop for both element types: a k-step is 32 bytes of every row
-// of A and of B, which is 32 int8 or 16 bf16 values, and the two mma
-// shapes read their fragments with the same byte layout, so only the mma
-// instruction and the accumulator type differ.  B is taken as (N, K)
-// row-major, the layout mma's ".col" operand wants: ldmatrix can transpose
-// 16-bit elements only, so int8 (K, N) weights could not be read
-// transposed.  The wrapper keeps one transposed copy of each weight tensor
-// (the weights are constant from call to call, so the transpose is made
-// once), and both operands then stream through cp.async and ldmatrix alike.
-// Shared-memory rows are 80 bytes apart, so the 8 rows an ldmatrix reads
-// fall on 8 distinct 16-byte bank groups.  Ragged M and N are masked in the
-// kernel (loads zero-filled, stores skipped); K is taken in 16-byte chunks
-// and a ragged last stage zero-filled, so the wrapper pads K to 16 bytes.
+// so the bytes bind it.  Both run the Hopper GEMM mainloop of gemm_sm90.cuh
+// (TMA, wgmma, a producer and two consumer warpgroups, a persistent grid;
+// the header says why each piece is there), with the epilogues of
+// gemm_epilogue.cuh.  B is taken as (N, K) row-major: 8-bit wgmma operands
+// must be K-major, so the wrapper keeps one transposed copy of each weight
+// tensor (the weights are constant from call to call, so the transpose is
+// made once).  The mma.sync loop these entry points ran before
+// (gemm_sm80.cuh) is reachable only from gemm_sm90_variants.cu.
 //
 // The epilogue multiplies and adds with __fmul_rn / __fadd_rn in the order
 // ((acc * sx) * sw) + b, so nvcc cannot contract it into an FMA: the int32
 // sums are exact, and K11 is bit-identical with its plain twin.
 
-#include <cuda_pipeline.h>
-
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace vda {
-namespace {
 
-using bf16 = __nv_bfloat16;
+// The tiling of the Hopper loop, the fastest of the steps that
+// probes/bench_gemm_sm90.py times (gemm_sm90_variants.cu, "c2_ts2"): 128 x
+// 256 output tiles (two consumers of 64 rows, wgmma m64n256), a ring of 4
+// stages of 128 bytes of k, a persistent grid of clusters of two blocks
+// that share each B^T tile by multicast, the epilogue through shared
+// memory and TMA stores in groups of 2 boxes a consumer.
+using GEMM90 =
+    gemm90::Config<128, 256, 4, true, 2, gemm90::Mode::kFull, 2>;
 
-constexpr int BM = 128, BN = 128;  // output tile of a block
-constexpr int BKB = 64;            // bytes of k a stage: two k-steps
-constexpr int PITCH = BKB + 16;    // bytes between shared-memory rows
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;  // 8 warps: 2 along m x 4 along n, 64 x 32 each
-constexpr size_t STAGE_BYTES = static_cast<size_t>(BM + BN) * PITCH;
-constexpr size_t SMEM_BYTES = STAGES * STAGE_BYTES;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-struct S8 {  // int8 x int8 -> int32: k 32 a step
-  using Acc = int;
-  static __device__ __forceinline__ void mma(int (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-struct BF16 {  // bf16 x bf16 -> fp32: k 16 a step
-  using Acc = float;
-  static __device__ __forceinline__ void mma(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-// K11's epilogue: ((acc * sx[row]) * sw[col]) + b[col], each step rounded.
-template <typename Out>
-struct Dequant {
-  const float* sx;
-  const float* sw;
-  const float* b;
-  Out* out;
-  int n;
-  __device__ __forceinline__ float at(int acc, int row, int col) const {
-    return __fadd_rn(
-        __fmul_rn(__fmul_rn(__int2float_rn(acc), sx[row]), sw[col]), b[col]);
-  }
-  __device__ __forceinline__ void operator()(int row, int col, int a0,
-                                             int a1) const;
-};
-template <>
-__device__ __forceinline__ void Dequant<float>::operator()(int row, int col,
-                                                           int a0,
-                                                           int a1) const {
-  *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * n + col) =
-      make_float2(at(a0, row, col), at(a1, row, col + 1));
-}
-template <>
-__device__ __forceinline__ void Dequant<bf16>::operator()(int row, int col,
-                                                          int a0,
-                                                          int a1) const {
-  *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * n +
-                                     col) =
-      __floats2bfloat162_rn(at(a0, row, col), at(a1, row, col + 1));
-}
-
-// K13's stores: the int32 sums as they are, or the fp32 sums rounded to bf16.
-struct StoreI32 {
-  int* out;
-  int n;
-  __device__ __forceinline__ void operator()(int row, int col, int a0,
-                                             int a1) const {
-    *reinterpret_cast<int2*>(out + static_cast<size_t>(row) * n + col) =
-        make_int2(a0, a1);
-  }
-};
-struct StoreBf16 {
-  bf16* out;
-  int n;
-  __device__ __forceinline__ void operator()(int row, int col, float a0,
-                                             float a1) const {
-    *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * n +
-                                       col) = __floats2bfloat162_rn(a0, a1);
-  }
-};
-
-// out tile (blockIdx.y, blockIdx.x) of A (M, kb bytes a row) times B^T, B
-// given as (N, kb bytes a row), both row-major; epi(row, col, v, v') gets
-// the sums of columns col and col + 1 (col even) of each row in range.
-template <class Mma, class Epi>
-__global__ void __launch_bounds__(THREADS)
-    gemm_kernel(const unsigned char* __restrict__ a,
-                const unsigned char* __restrict__ bt, int m, int n, int kb,
-                Epi epi) {
-  using Acc = typename Mma::Acc;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-
-  // one stage: BM rows of A then BN rows of B, 4 chunks of 16 bytes a row;
-  // rows out of range and chunks past kb are zero-filled
-  auto load = [&](int stage, int k0) {
-    unsigned char* sa = smem + stage * STAGE_BYTES;
-    unsigned char* sb = sa + BM * PITCH;
-#pragma unroll
-    for (int i = tid; i < (BM + BN) * (BKB / 16); i += THREADS) {
-      const int r = i / (BKB / 16), c = (i % (BKB / 16)) * 16;
-      const bool is_a = r < BM;
-      const int row = is_a ? m0 + r : n0 + r - BM;
-      const bool ok = row < (is_a ? m : n) && k0 + c < kb;
-      const unsigned char* src =
-          ok ? (is_a ? a : bt) + static_cast<size_t>(row) * kb + k0 + c : a;
-      __pipeline_memcpy_async((is_a ? sa + r * PITCH : sb + (r - BM) * PITCH) +
-                                  c,
-                              src, 16, ok ? 0 : 16);
-    }
-  };
-
-  Acc acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int ktiles = (kb + BKB - 1) / BKB;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load(s, s * BKB);
-    __pipeline_commit();
-  }
-  // ldmatrix row and byte offsets of this lane (flash_attention.cuh's
-  // load_a / load_b in bytes)
-  const int a_row = ((lane / 8) % 2) * 8 + lane % 8, a_col = (lane / 16) * 16;
-  const int b_row = (lane / 16) * 8 + lane % 8, b_col = ((lane / 8) % 2) * 16;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    __pipeline_wait_prior(STAGES - 2);
-    __syncthreads();  // stage kt is in; every warp is done with kt - 1
-    const int nk = kt + STAGES - 1;
-    if (nk < ktiles) load(nk % STAGES, nk * BKB);
-    __pipeline_commit();
-    const unsigned char* sa = smem + (kt % STAGES) * STAGE_BYTES;
-    const unsigned char* sb = sa + BM * PITCH;
-#pragma unroll
-    for (int ks = 0; ks < BKB; ks += 32) {
-      uint32_t af[4][4], bfr[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], sa + (wm + i * 16 + a_row) * PITCH + ks + a_col);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldmatrix_x4(bfr[j], sb + (wn + j * 16 + b_row) * PITCH + ks + b_col);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Mma::mma(acc[i][j], af[i], bfr[j / 2][(j % 2) * 2],
-                   bfr[j / 2][(j % 2) * 2 + 1]);
-    }
-  }
-  __pipeline_wait_prior(0);
-
-  // fragment (i, j): rows g and g + 8 of m-tile i, columns 2t, 2t + 1 of
-  // n-tile j
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn + j * 8 + 2 * t;
-      if (col >= n) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + i * 16 + g + 8 * h;
-        if (row < m) epi(row, col, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-}
-
-template <class Mma, class Epi>
-cudaError_t launch(const void* a, const void* bt, int m, int n, int kb,
-                   Epi epi, cudaStream_t stream) {
-  auto kern = gemm_kernel<Mma, Epi>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kern<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const unsigned char*>(a),
-      static_cast<const unsigned char*>(bt), m, n, kb, epi);
-  return cudaGetLastError();
-}
-
-// Shapes both entry points take: k * elem a multiple of 16 bytes (rows
-// 16-byte aligned for cp.async), n even (pairs of columns are stored
-// together), the grid's row count within its limit.
-bool shape_ok(int m, int n, int k, int elem) {
-  return m > 0 && n > 0 && k > 0 && (k * elem) % 16 == 0 && n % 8 == 0 &&
-         (m + BM - 1) / BM <= 65535;
-}
-
-}  // namespace
 }  // namespace vda
+
+// The loop the two entry points below run: 90, the Hopper loop.
+extern "C" int vda_gemm_loop() { return 90; }
 
 // K11.  xq (M, K) int8, wt (N, K) int8 (the weight transposed), sx (M,)
 // fp32, sw and b (N,) fp32; out (M, N) bf16 (out_bf16) or fp32.  All
@@ -263,19 +47,19 @@ bool shape_ok(int m, int n, int k, int elem) {
 extern "C" int vda_int8_linear(const void* xq, const void* wt, const void* sx,
                                const void* sw, const void* b, void* out, int m,
                                int n, int k, int out_bf16, void* stream) {
-  if (!vda::shape_ok(m, n, k, 1)) return cudaErrorInvalidValue;
+  using namespace vda::gemm;
+  if (!shape_ok(m, n, k, 1)) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* fsx = static_cast<const float*>(sx);
   const auto* fsw = static_cast<const float*>(sw);
   const auto* fb = static_cast<const float*>(b);
   if (out_bf16)
-    return vda::launch<vda::S8>(
+    return vda::gemm90::launch<vda::GEMM90, vda::gemm90::S8>(
         xq, wt, m, n, k,
-        vda::Dequant<vda::bf16>{fsx, fsw, fb, static_cast<vda::bf16*>(out), n},
-        st);
-  return vda::launch<vda::S8>(
+        Dequant<bf16>{fsx, fsw, fb, static_cast<bf16*>(out), n}, st);
+  return vda::gemm90::launch<vda::GEMM90, vda::gemm90::S8>(
       xq, wt, m, n, k,
-      vda::Dequant<float>{fsx, fsw, fb, static_cast<float*>(out), n}, st);
+      Dequant<float>{fsx, fsw, fb, static_cast<float*>(out), n}, st);
 }
 
 // K13.  a (M, K) and bt (N, K), both int8 (out int32) or both bf16 (out
@@ -283,13 +67,13 @@ extern "C" int vda_int8_linear(const void* xq, const void* wt, const void* sx,
 extern "C" int vda_matmul_probe(const void* a, const void* bt, void* out,
                                 int m, int n, int k, int is_bf16,
                                 void* stream) {
+  using namespace vda::gemm;
   const int elem = is_bf16 ? 2 : 1;
-  if (!vda::shape_ok(m, n, k, elem)) return cudaErrorInvalidValue;
+  if (!shape_ok(m, n, k, elem)) return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return vda::launch<vda::BF16>(
-        a, bt, m, n, k * 2,
-        vda::StoreBf16{static_cast<vda::bf16*>(out), n}, st);
-  return vda::launch<vda::S8>(a, bt, m, n, k,
-                              vda::StoreI32{static_cast<int*>(out), n}, st);
+    return vda::gemm90::launch<vda::GEMM90, vda::gemm90::BF16>(
+        a, bt, m, n, k * 2, StoreBf16{static_cast<bf16*>(out), n}, st);
+  return vda::gemm90::launch<vda::GEMM90, vda::gemm90::S8>(
+      a, bt, m, n, k, StoreI32{static_cast<int*>(out), n}, st);
 }

@@ -43,6 +43,8 @@ def reset_launch_counts() -> None:
     attn_proj_kernel.launches = 0
     norm_kernel.launches = 0
     quant.launches = 0
+    quant.gemm_launches_by_loop = dict.fromkeys(quant.gemm_launches_by_loop,
+                                                0)
     resize_kernel.launches = 0
     segment_kernel.launches = 0
     temporal_kernel.launches_block = 0

@@ -71,6 +71,10 @@ _SIGNATURES = {
     "vda_segment_attention": [_P] * 5 + [_I] * 3 + [_I64, _F, _I, _P],
     # xq, wt, sx, sw, b, out, M, N, K, out_bf16, stream
     "vda_int8_linear": [_P] * 6 + [_I] * 4 + [_P],
+    # -> 90: the loop vda_int8_linear and vda_matmul_probe run (Hopper)
+    "vda_gemm_loop": [],
+    # a, bt, sx, sw, b, out, M, N, K, kind, variant, stream
+    "vda_gemm_sm90_variant": [_P] * 6 + [_I] * 5 + [_P],
     # a, bt, out, M, N, K, is_bf16, stream
     "vda_matmul_probe": [_P] * 3 + [_I] * 4 + [_P],
     # q, k, v, out, B, N, H, D, row_stride, valid_len, scale, variant, stream

@@ -12,15 +12,20 @@ dominate.
 
 What bounds it on the H100: at the encoder's qkv shape (43840, 1024) x
 (1024, 3072) the operations, 2.8e11 at 1979 TOP/s int8 (0.14 ms), against
-~0.32 GB of bytes.  The kernel (``csrc/int8_matmul.cu``) is a tensor-core
-GEMM with ``mma.sync`` m16n8k32 (int32 sums) on operands that cp.async
-stages in shared memory and ldmatrix reads; it takes the weight as (N, K),
-the layout of the mma's B operand (ldmatrix transposes only 16-bit
-elements), so the wrapper keeps one transposed copy of each weight tensor,
-made at its first use and kept until the tensor changes, as ``cast_once``
-keeps casts.  Ragged M is masked in the kernel; K is zero-padded to 16
-bytes (exact).  The epilogue rounds each step as the twin does, so the two
-agree bit for bit.
+~0.32 GB of bytes.  The kernel (``csrc/int8_matmul.cu`` on the Hopper
+mainloop of ``csrc/gemm_sm90.cuh``: TMA loads into a ring of stages, wgmma
+m64n256k32 with int32 sums, a producer and two consumer warpgroups, a
+persistent grid of two-block clusters that share each weight tile by
+multicast, the epilogue through shared memory and TMA stores) takes the
+weight as (N, K): 8-bit wgmma operands must be K-major, so the wrapper
+keeps one transposed copy of each weight tensor, made at its first use and
+kept until the tensor changes, as ``cast_once`` keeps casts.  Ragged M and N come in as zeros and are not
+stored; K is zero-padded to 16 bytes (exact; TMA's row strides are 16-byte
+multiples).  The epilogue rounds each step as the twin does, so the two
+agree bit for bit.  ``gemm_launches_by_loop`` counts K11's and K13's
+launches by the loop the library reports running (``vda_gemm_loop``):
+"sm90" the Hopper loop, "sm80" the ``mma.sync`` loop it replaced, which no
+wrapper reaches any more (``probes/bench_gemm_sm90.py`` times it).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from vda_tpu_torch.ops import _build
 
 launches = 0  # K11 launches made by ``int8_linear``
+gemm_launches_by_loop = {"sm90": 0, "sm80": 0}  # K11 and K13, by loop
 
 _transposed = WeakIdKeyDictionary()  # weight -> (its state, its (N, K) copy)
 
@@ -79,20 +85,28 @@ def _check_width(n):
                          f"got n={n}")
 
 
-def padded_k(k: int) -> int:
-    """K rounded up to the kernel's 16-byte chunk (for int8, 16 values)."""
-    return -(-k // 16) * 16
+def padded_k(k: int, itemsize: int = 1) -> int:
+    """K rounded up to the kernel's 16-byte chunk (for int8, 16 values; for
+    bf16, 8)."""
+    per = 16 // itemsize
+    return -(-k // per) * per
+
+
+def gemm_loop() -> str:
+    """The device loop the GEMM entry points run, as the library reports
+    it (``vda_gemm_loop``): "sm90" or "sm80"."""
+    return "sm90" if _build.library().vda_gemm_loop() == 90 else "sm80"
 
 
 def transposed(w):
-    """The (N, K) copy of a (K, N) weight, K zero-padded to ``padded_k``:
-    made once and reused until ``w`` changes, in place or by
+    """The (N, K) copy of a (K, N) weight, K zero-padded to ``padded_k``
+    (16 bytes): made once and reused until ``w`` changes, in place or by
     reallocation."""
     state = (w.device, w.data_ptr(), w._version)
     hit = _transposed.get(w)
     if hit is None or hit[0] != state:
         k = w.shape[0]
-        wt = F.pad(w.t(), (0, padded_k(k) - k)).contiguous()
+        wt = F.pad(w.t(), (0, padded_k(k, w.element_size()) - k)).contiguous()
         hit = _transposed[w] = (state, wt)
     return hit[1]
 
@@ -129,7 +143,7 @@ def int8_matmul(xq, wq, sx, sw, b, out_dtype):
     m, k = xq.shape
     n = wq.shape[1]
     _check_width(n)
-    if m == 0 or -(-m // 128) > 65535:
+    if m == 0:
         raise ValueError(f"{name}: unsupported row count {m}")
     if sx.numel() != m or sw.numel() != n or b.numel() != n:
         raise ValueError(f"{name}: sx ({m}, 1), sw and b ({n},) expected")
@@ -145,6 +159,7 @@ def int8_matmul(xq, wq, sx, sw, b, out_dtype):
         int(out_dtype == torch.bfloat16), _build.stream_ptr(xq))
     _build.check(err, "vda_int8_linear")
     launches += 1
+    gemm_launches_by_loop[gemm_loop()] += 1
     return out
 
 
