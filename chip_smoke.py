@@ -23,7 +23,8 @@ with every launch counter set to 0 just before it and read just after:
     path;
   * ``fused_window``: the same vitl video through ``infer_video_depth(
     fuse_proj=True, resize_kernel=True)`` (K7 and K10), then one window
-    against the default-kernel and the all-plain forwards;
+    against the default-kernel and the all-plain forwards, the two timed
+    in turns;
   * ``fused_stream``: 8 vitl ``StreamingDepth(fuse_proj=True)`` steps
     against the default stream, counts asserted step by step;
   * ``cross_attention``: ``models.cross_attention`` at vitl encoder widths,
@@ -46,8 +47,9 @@ with every launch counter set to 0 just before it and read just after:
     linear of the float weights;
   * ``probes``: the three measurement entry points' runs
     (``vda_tpu_torch.probes``): every K12 variant of K1 at (32, 1370,
-    3072), K13 and K11's dynamic-quant arm at (45056, 1024) @ (1024,
-    3072), K14's four stages and K6's two, each arm against its twin;
+    3072) (all but ``mma_sync`` on the Hopper loop), K13 and K11's
+    dynamic-quant arm at (45056, 1024) @ (1024, 3072), K14's four stages
+    and K6's two, each arm against its twin;
   * ``host_sync``: a steady ``StreamingDepth.submit`` with the device held
     by ``torch.cuda._sleep`` (~50 ms, or three times an idle submit's host
     time if longer) returns in less host time than the sleep (vits; vitl's
@@ -58,9 +60,17 @@ with every launch counter set to 0 just before it and read just after:
 K1 and K9 (bf16, head width 64) run the Hopper loop
 (csrc/flash_attention_sm90.cuh: TMA, wgmma, warp specialisation): their
 ``kernel_vs_plain`` lines carry the old mma.sync loop's time on the same
-values (``mma_sync_ms``, K12 ``full``) and the largest |new - old|, and
-every K1 launch of the vitl window, the vitl stream and the vits window is
-asserted to have gone through it (``attention_kernel.launches_by_loop``).
+values (``mma_sync_ms``, K12 ``mma_sync``) and the largest |new - old|,
+and every K1 launch of the vitl window, the vitl stream and the vits
+window is asserted to have gone through it
+(``attention_kernel.launches_by_loop``).  K12's ``full`` runs K1's own
+configuration of that loop: its line carries the old loop's time, and it
+is asserted bit-identical with K1.  K7 in bf16 runs the Hopper kernel of
+csrc/attention_heads_sm90.cuh: its lines, at the fused window's (32, 1370,
+3072) and the fused stream step's (1, 1370, 3072), carry the split path's
+time (``split_ms``), and every K7 launch of phases ``kernels``,
+``fused_window`` and ``fused_stream`` is asserted to have run it
+(``attn_proj_kernel.launches_by_loop``).
 K11 and K13 run the Hopper GEMM mainloop (csrc/gemm_sm90.cuh): their lines
 carry the old mma.sync loop's time on the same values (``mma_sync_ms``,
 ``probes.bench_gemm_sm90``'s ``mma_sync`` step) and the largest |new -
@@ -266,6 +276,15 @@ def by_loop_ok(counts) -> bool:
         "sm90": counts["K1"] + counts["K9"], "sm80": 0}
 
 
+def k7_by_loop_ok(counts) -> bool:
+    """Every K7 launch since the counters were reset ran the Hopper
+    kernel."""
+    from vda_tpu_torch.ops import attn_proj_kernel
+
+    return attn_proj_kernel.launches_by_loop == {"sm90": counts["K7"],
+                                                 "sm80": 0}
+
+
 def gemm_by_loop_ok(counts, loops, since=None) -> bool:
     """Every K11/K13 launch counted in ``counts`` ran the Hopper GEMM loop:
     ``loops`` is ``quant.gemm_launches_by_loop`` read with ``counts``, and
@@ -338,8 +357,8 @@ def phase_kernels(model):
     # K1: encoder attention on the Hopper loop, (B*T, N, 3*H*D) = (32, 1370,
     # 3072), 16 heads (the vitl window), then the vitl stream step (1, 1370,
     # 3072: 8 x 16 = 128 blocks of 192 query rows for 132 SMs) and the vits
-    # window (32, 1370, 1152: 6 heads); the old mma.sync loop (K12 "full")
-    # timed beside it on the same values
+    # window (32, 1370, 1152: 6 heads); the old mma.sync loop (K12
+    # "mma_sync") timed beside it on the same values
     def k1_case(b, n, h, d=64):
         qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g).to(bf)
         heads_view = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
@@ -350,7 +369,7 @@ def phase_kernels(model):
               TOL["K1"], cost=(4 * b * n * h * d * 2, 4 * b * h * n * n * d),
               library=lambda: F.scaled_dot_product_attention(
                   *heads_view, scale=d ** -0.5),
-              mma_sync=lambda: k12.attn(qkv, h, d ** -0.5, "full"))
+              mma_sync=lambda: k12.attn(qkv, h, d ** -0.5, "mma_sync"))
 
     b, n, h, d = 32, 1370, 16, 64
     for shape in ((32, 1370, 16), (1, 1370, 16), (32, 1370, 6)):
@@ -452,9 +471,11 @@ def phase_kernels(model):
         k6_case(*shape, bf, n_valid=31)
     k6_case(37, 31, 256, torch.float32, n_valid=19)
 
-    # K7: vitl's fused attention half, qkv (32, 1370, 3072), W (1024, 1024);
-    # against the bf16 twin; the split path it replaces (K1, the projection,
-    # LayerScale and residual as block_apply runs them) timed beside it
+    # K7: vitl's fused attention half, qkv (32, 1370, 3072), W (1024, 1024),
+    # then the fused stream step's (1, 1370, 3072); against the bf16 twin;
+    # the split path it replaces (K1, the projection, LayerScale and
+    # residual as block_apply runs them) timed beside it; in bf16 every
+    # launch on the Hopper kernel
     def k7_case(b, n, heads, d, dtype, valid=None):
         c = heads * d
 
@@ -478,7 +499,14 @@ def phase_kernels(model):
               split=lambda: x + F.linear(k1.flash_attention_qkv(
                   qkv, heads, scale, valid), w, bias) * gamma)
 
+    k7_loops0, k7_n0 = dict(k7.launches_by_loop), k7.launches
     k7_case(32, 1370, 16, 64, bf)
+    k7_case(1, 1370, 16, 64, bf)
+    k7_loops = {key: v - k7_loops0[key]
+                for key, v in k7.launches_by_loop.items()}
+    if k7_loops != {"sm90": k7.launches - k7_n0, "sm80": 0}:
+        raise AssertionError(f"a bf16 K7 launch missed the Hopper kernel: "
+                             f"{k7_loops}")
     # K9: the generic attention entry at vitl encoder widths, three separate
     # (32, 1370, 1024) tensors, 16 heads
     q, k, v = (torch.randn(b, n, h * d, device="cuda", generator=g).to(bf)
@@ -493,7 +521,7 @@ def phase_kernels(model):
           library=lambda: F.scaled_dot_product_attention(
               *(t.view(b, n, h, d).transpose(1, 2) for t in (q, k, v)),
               scale=d ** -0.5),
-          mma_sync=lambda: k12.attn(qkv9, h, d ** -0.5, "full"))
+          mma_sync=lambda: k12.attn(qkv9, h, d ** -0.5, "mma_sync"))
     k9 = k1.flash_attention_packed(q, k, v, h, d ** -0.5)
     if not torch.equal(k9, k1.flash_attention_qkv(qkv9, h, d ** -0.5)):
         raise AssertionError("K9 and K1 differ on the same values")
@@ -603,9 +631,12 @@ def phase_kernels(model):
           mma_sync=lambda: gemm90.gemm("k11", xr, k11.transposed(wr),
                                        "mma_sync", sxr, swr, br))
     del xr, wr
-    # K12: K1's function as the variant kernel runs it, at K1's shape and
-    # bound (the other variants: phase probes)
+    # K12: K1's function as the variant kernel runs it on the Hopper loop
+    # (K1's own configuration), at K1's shape and bound, bit-identical with
+    # K1; the old loop's full (mma_sync) timed beside it (the other
+    # variants: phase probes)
     qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=g).to(bf)
+    k12_loops0 = dict(k12.launches_by_loop)
     check("K12", qkv.shape, lambda: k12.attn(qkv, h, d ** -0.5, "full"),
           lambda fp32: k12.attn_reference(
               qkv, h, d ** -0.5, "full",
@@ -613,7 +644,18 @@ def phase_kernels(model):
           cost=(4 * b * n * h * d * 2, 4 * b * h * n * n * d),
           library=lambda: F.scaled_dot_product_attention(
               *qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4),
-              scale=d ** -0.5))
+              scale=d ** -0.5),
+          mma_sync=lambda: k12.attn(qkv, h, d ** -0.5, "mma_sync"))
+    if not torch.equal(k12.attn(qkv, h, d ** -0.5, "full"),
+                       k1.flash_attention_qkv(qkv, h, d ** -0.5)):
+        raise AssertionError("K12 full and K1 differ on the same values")
+    torch.cuda.synchronize()
+    k12_sm90 = k12.launches_by_loop["sm90"] - k12_loops0["sm90"]
+    k12_sm80 = k12.launches_by_loop["sm80"] - k12_loops0["sm80"]
+    if k12_sm90 != 1 + 5 + 1 + 1 or k12_sm80 != 1 + 5 + 1:
+        raise AssertionError(f"K12 launches by loop: full {k12_sm90} on "
+                             f"the Hopper loop, mma_sync {k12_sm80} on the "
+                             "old one")
     del qkv
     # K13 at the rate probe's shape: int8 -> int32 exact (its int32 output
     # dominates the bytes), library torch._int_mm; bf16 against the
@@ -931,8 +973,9 @@ def phase_fused_window(model, frames):
     counts = ops.launch_counts()
     n_windows = len(range(0, len(frames), 22))
     want = {k: v * n_windows for k, v in PER_FUSED_WINDOW.items()}
-    if counts != want:
-        raise AssertionError(f"fused launch counts {counts} != {want}")
+    if counts != want or not k7_by_loop_ok(counts):
+        raise AssertionError(f"fused launch counts {counts} != {want}, or a "
+                             "K7 launch missed the Hopper kernel")
     if depths.shape != frames.shape[:3] or not np.isfinite(depths).all() \
             or not depths.std() > 0:
         raise AssertionError("fused depths not finite, constant or of the "
@@ -989,9 +1032,10 @@ def phase_fused_stream(model, frames):
                 counts = ops.launch_counts()
                 want = {**PER_STEP, "K1": 0, "K7": 24,
                         "K5": 8 if i == 0 else 0}
-                if counts != want:
+                if counts != want or not k7_by_loop_ok(counts):
                     raise AssertionError(f"fused stream step {i}: launches "
-                                         f"{counts} != {want}")
+                                         f"{counts} != {want}, or a K7 "
+                                         "launch missed the Hopper kernel")
                 total = {k: total[k] + counts[k] for k in total}
         r = rel(depth["kv"], depth["fused"])[1]
         worst = max(worst, r)
@@ -1343,16 +1387,21 @@ def phase_probes():
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     loops = dict(quant.gemm_launches_by_loop)
+    k12_loops = dict(bench_attn_variants.launches_by_loop)
     emit(phase="probes", launches=counts, gemm_launches_by_loop=loops,
-         **rows)
-    # each arm: a warm-up and ``reps`` timed calls, and one checked call
+         k12_launches_by_loop=k12_loops, **rows)
+    # each arm: a warm-up and ``reps`` timed calls, and one checked call;
+    # at head width 64 every K12 variant but mma_sync on the Hopper loop
     n_variants = len(bench_attn_variants.VARIANTS)
     want = {**ZERO, "K12": n_variants * (reps + 2), "K13": 2 * (reps + 2),
             "K11": reps + 2, "K14": len(probe_stream_kernel.STAGES)
             * (stream_reps + 2), "K6": 2 * (stream_reps + 2)}
-    if counts != want or not gemm_by_loop_ok(counts, loops):
+    want_k12 = {"sm90": (n_variants - 1) * (reps + 2), "sm80": reps + 2}
+    if counts != want or not gemm_by_loop_ok(counts, loops) \
+            or k12_loops != want_k12:
         raise AssertionError(f"probes launches {counts} != {want}, GEMM by "
-                             f"loop {loops}")
+                             f"loop {loops}, K12 by loop {k12_loops} != "
+                             f"{want_k12}")
     bad = [r for rs in rows.values() for r in rs if not r.get("ok", True)]
     if bad:
         raise AssertionError(f"probe arms disagree with their twins: {bad}")

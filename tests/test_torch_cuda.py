@@ -22,7 +22,12 @@ rounding steps); K13 int8 exact, bf16 within 2^-8 of the scale against the
 unrounded fp32 product (one output rounding); bf16 K12 and K14 against
 their twins' unrounded outputs, 3.9e-3 (the output rounding is at most
 half a bf16 ulp of the scale; the softmax variants round exp to bf16), K12
-bf16sm 2e-2 (``bench_attn_variants.TOL_BF16SM`` says why).
+bf16sm 2e-2 (``bench_attn_variants.TOL_BF16SM`` says why).  K7 and K12
+launches are asserted on the device loop their C entry points report
+(``attn_proj_kernel.loop_of``, ``bench_attn_variants.loop_of``): "sm90"
+for bf16 at head width 64 (K12: every variant but ``mma_sync``), "sm80"
+otherwise; K7's design steps (``probes/bench_attn_proj_sm90.py``) against
+their twins at small shapes.
 """
 
 import numpy as np
@@ -45,6 +50,8 @@ from vda_tpu_torch.ops import (
     tiny_seq_kernel,
 )
 from vda_tpu_torch.ops.resize import resize_bilinear
+from vda_tpu_torch.probes.bench_attn_proj_sm90 import VARIANTS as K7_VARIANTS
+from vda_tpu_torch.probes.bench_attn_variants import VARIANTS as K12_VARIANTS
 from vda_tpu_torch.probes.bench_gemm_sm90 import VARIANTS as GEMM_VARIANTS
 
 pytestmark = pytest.mark.cuda
@@ -88,6 +95,18 @@ def _on_gemm_loop(name, fn):
     out = _launched(name, fn)
     assert quant.gemm_launches_by_loop == {"sm90": before["sm90"] + 1,
                                            "sm80": before["sm80"]}
+    return out
+
+
+def _on_loop(counts, loop, fn):
+    """fn()'s result, checking that it moved the by-loop counter dict
+    ``counts()`` by one launch on ``loop``."""
+    before = dict(counts())
+    out = fn()
+    torch.cuda.synchronize()
+    after = counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "sm90": int(loop == "sm90"), "sm80": int(loop == "sm80")}
     return out
 
 
@@ -394,12 +413,88 @@ def test_k7_attention_proj(gen, dtype, b, n, heads, dh, valid):
     package holds its fused kernel to, tests/test_attn_fuse_proj.py)."""
     qkv, w, gb, x = _k7_inputs(gen, b, n, heads, dh, dtype)
     scale = dh ** -0.5
-    got = _launched("K7", lambda: attn_proj_kernel.flash_attention_qkv_proj(
-        qkv, w, gb, x, heads, scale, valid))
+    loop = attn_proj_kernel.loop_of(dtype, dh)
+    assert loop == ("sm90" if dtype == BF and dh == 64 else "sm80")
+    got = _on_loop(lambda: attn_proj_kernel.launches_by_loop, loop,
+                   lambda: _launched(
+                       "K7", lambda: attn_proj_kernel.flash_attention_qkv_proj(
+                           qkv, w, gb, x, heads, scale, valid)))
     ref = attn_proj_kernel.flash_attention_qkv_proj_reference(
         qkv, w, gb, x, heads, scale, valid)
     assert got.dtype == dtype and got.shape == x.shape
     assert _rel(ref, got) < TOL_TEMPORAL[dtype]
+
+
+# K7 on the Hopper kernel at vits, vitb and vitl widths (6, 12, 16 heads of
+# 64): N of one token, one row short of a 64-row tile, one tile, one tile
+# and a row, and vitl's 1370; batch 1 (the stream step) and 3; all keys, or
+# keys masked from about two thirds of N on
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1370])
+@pytest.mark.parametrize("heads", [6, 12, 16])
+def test_k7_hopper_kernel(gen, heads, n, b, masked):
+    """bf16 K7 at head width 64 against its twin (TOL_TEMPORAL[bf16]),
+    each launch counted on the Hopper kernel."""
+    valid = max(1, 2 * n // 3) if masked else None
+    if masked and valid == n:
+        valid = n - 1 if n > 1 else None
+    qkv, w, gb, x = _k7_inputs(gen, b, n, heads, 64, BF)
+    got = _on_loop(lambda: attn_proj_kernel.launches_by_loop, "sm90",
+                   lambda: _launched(
+                       "K7", lambda: attn_proj_kernel.flash_attention_qkv_proj(
+                           qkv, w, gb, x, heads, 0.125, valid)))
+    ref = attn_proj_kernel.flash_attention_qkv_proj_reference(
+        qkv, w, gb, x, heads, 0.125, valid)
+    assert got.dtype == BF and got.shape == x.shape
+    assert _rel(ref, got) < TOL_TEMPORAL[BF]
+
+
+@pytest.mark.parametrize("heads", [1, 3, 5, 7])
+def test_k7_hopper_kernel_odd_heads(gen, heads):
+    """An odd head count splits unevenly across the cluster pair (one head:
+    the second block attends to none and only projects)."""
+    qkv, w, gb, x = _k7_inputs(gen, 2, 130, heads, 64, BF)
+    got = _on_loop(lambda: attn_proj_kernel.launches_by_loop, "sm90",
+                   lambda: attn_proj_kernel.flash_attention_qkv_proj(
+                       qkv, w, gb, x, heads, 0.125, 100))
+    ref = attn_proj_kernel.flash_attention_qkv_proj_reference(
+        qkv, w, gb, x, heads, 0.125, 100)
+    assert _rel(ref, got) < TOL_TEMPORAL[BF]
+
+
+@pytest.mark.parametrize("dtype,dh,loop", [
+    (BF, 64, "sm90"), (BF, 32, "sm80"), (F32, 64, "sm80")])
+def test_k7_loop_is_chosen_by_dtype_and_head_width(gen, dtype, dh, loop):
+    """bf16 at head width 64 runs the Hopper kernel; fp32 and a head width
+    of 32 the mma.sync / fp32 kernels, each counted once."""
+    heads = 512 // dh
+    qkv, w, gb, x = _k7_inputs(gen, 2, 130, heads, dh, dtype)
+    assert attn_proj_kernel.loop_of(dtype, dh) == loop
+    got = _on_loop(lambda: attn_proj_kernel.launches_by_loop, loop,
+                   lambda: attn_proj_kernel.flash_attention_qkv_proj(
+                       qkv, w, gb, x, heads, dh ** -0.5, 100))
+    ref = attn_proj_kernel.flash_attention_qkv_proj_reference(
+        qkv, w, gb, x, heads, dh ** -0.5, 100)
+    assert _rel(ref, got) < TOL_TEMPORAL[dtype]
+
+
+@pytest.mark.parametrize("variant", list(K7_VARIANTS))
+def test_k7_design_steps_agree_with_their_twins(gen, variant):
+    """Every step of probes/bench_attn_proj_sm90.py at vitl's width (16
+    heads) over 130 tokens with keys masked past 100, and at vits's (6
+    heads) over 65: the function's steps within K7's bound, the two that
+    run one phase alone (x + gamma * bias) exactly."""
+    from vda_tpu_torch.probes import bench_attn_proj_sm90 as bp
+
+    for b, n, heads, valid in ((2, 130, 16, 100), (1, 65, 6, None)):
+        qkv, w, gb, x = bp.inputs(gen, b, n, heads)
+        got = bp.attn_proj(variant, qkv, w, gb, x, heads, 0.125, valid)
+        torch.cuda.synchronize()
+        ref = bp.attn_proj_reference(variant, qkv, w, gb, x, heads, 0.125,
+                                     valid)
+        ok, r = bp.agrees(variant, got, ref)
+        assert ok, (b, n, heads, r)
 
 
 # the two vitl window shapes (at batch 8), the gate's cases of
@@ -842,10 +937,9 @@ def test_gemm_design_steps_agree_with_their_twins(gen, kind, variant):
 
 # K12: the function variants over head widths 8-128, the geometry variants
 # (the vitl tiling's alternatives) over 8-64; ragged N; 3 heads, so two
-# heads a block leaves a group without a head
-@pytest.mark.parametrize("variant", ["full", "matmul", "nomask", "fp32exp",
-                                     "bf16sm", "exp2", "bq128", "bk32",
-                                     "bk128", "heads2"])
+# heads a block leaves a group without a head.  Head width 64 runs every
+# variant but mma_sync on the Hopper loop
+@pytest.mark.parametrize("variant", list(K12_VARIANTS))
 @pytest.mark.parametrize("n", [100, 257, 1370])
 @pytest.mark.parametrize("dh", [8, 40, 64, 80, 128])
 def test_k12_attention_variants(gen, variant, n, dh):
@@ -858,7 +952,10 @@ def test_k12_attention_variants(gen, variant, n, dh):
         with pytest.raises(ValueError):
             k12.attn(qkv, heads, dh ** -0.5, variant)
         return
-    got = _launched("K12", lambda: k12.attn(qkv, heads, dh ** -0.5, variant))
+    loop = k12.loop_of(dh, variant)
+    assert loop == ("sm90" if dh == 64 and variant != "mma_sync" else "sm80")
+    got = _on_loop(lambda: k12.launches_by_loop, loop, lambda: _launched(
+        "K12", lambda: k12.attn(qkv, heads, dh ** -0.5, variant)))
     np_len = -(-n // 64) * 64
     ref = k12.attn_reference(qkv, heads, dh ** -0.5, k12.VARIANTS[variant][1],
                              np_len, torch.float32)
@@ -867,20 +964,27 @@ def test_k12_attention_variants(gen, variant, n, dh):
 
 
 def test_k12_full_is_k1_and_refusals(gen):
-    """The full variant is K1's function on the mma.sync loop, which K1 ran
-    until its bf16 head-width-64 shapes moved to the Hopper loop: the two
-    are each within TOL[bf16] of the twin and of each other."""
+    """The full variant is K1's own configuration of the Hopper loop, so
+    bit-identical with K1 (and so are exp2 and bk128, the same
+    configuration); mma_sync is the old loop's full, which K1 ran before:
+    within TOL[bf16] of the twin and of K1."""
     from vda_tpu_torch.probes import bench_attn_variants as k12
 
     qkv = torch.randn(4, 1370, 3 * 16 * 64, device="cuda", generator=gen)
     qkv = qkv.to(BF)
-    a = _launched("K12", lambda: k12.attn(qkv, 16, 0.125, "full"))
+    a = _on_loop(lambda: k12.launches_by_loop, "sm90", lambda: _launched(
+        "K12", lambda: k12.attn(qkv, 16, 0.125, "full")))
     b = _launched("K1", lambda: attention_kernel.flash_attention_qkv(
         qkv, 16, 0.125))
+    assert torch.equal(a, b)
+    for same in ("exp2", "bk128"):
+        assert torch.equal(k12.attn(qkv, 16, 0.125, same), b)
+    old = _on_loop(lambda: k12.launches_by_loop, "sm80", lambda: _launched(
+        "K12", lambda: k12.attn(qkv, 16, 0.125, "mma_sync")))
     ref = attention_kernel.flash_attention_qkv_reference(qkv.float(), 16,
                                                          0.125)
-    assert _rel(ref, a) < TOL[BF] and _rel(ref, b) < TOL[BF]
-    assert _rel(a, b) < TOL[BF]
+    assert _rel(ref, a) < TOL[BF] and _rel(ref, old) < TOL[BF]
+    assert _rel(old, b) < TOL[BF]
     with pytest.raises(ValueError):  # fp32
         k12.attn(qkv.float(), 16, 0.125, "full")
     with pytest.raises(ValueError):  # a key count that is not 64-aligned

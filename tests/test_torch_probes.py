@@ -91,6 +91,7 @@ def counters_at_rest():
 # (JAX attn keywords, the port's variant, tolerance)
 K12_CASES = {
     "full": (dict(), "full", 3.9e-3),
+    "mma_sync": (dict(), "mma_sync", 3.9e-3),  # the old loop's full
     "matmul": (dict(mode="matmul"), "matmul", 2e-5),
     "nomask": (dict(mode="nomask"), "nomask", 3.9e-3),
     "fp32exp": (dict(exp_dtype="fp32"), "fp32exp", 2e-5),

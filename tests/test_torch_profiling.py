@@ -10,6 +10,12 @@ from vda_tpu_torch.utils import profiling
      "64>(...)", "K1 attention_qkv"),
     ("void vda::(anonymous namespace)::attention_qkv_bf16_kernel<64>(...)",
      "K1 attention_qkv"),
+    ("void vda::sm90::attention_sm90_kernel<vda::sm90::Config<128, 3, 2, "
+     "false, false, (vda::sm90::Mode)0, 0, true> >(CUtensorMap_st, ...)",
+     "K1 attention_qkv"),
+    ("void vda::sm90::attention_heads_sm90_kernel<vda::sm90::HeadsConfig<3, "
+     "128, 1, true, 64, 2, (vda::sm90::Phases)0, 2, 1, false> >(...)",
+     "K7 attention_proj"),
     ("_ln_fwd", "K2 layer_norm"),
     ("void vda::(anonymous namespace)::temporal_block_kernel<float>(...)",
      "K3 temporal_block"),

@@ -6,6 +6,18 @@
 // a pre-norm ViT block after norm1.  Replaces vda_tpu/ops/pallas_attention.py
 // flash_attention_qkv_proj (_attn_proj_kernel).
 //
+// The device code is chosen by (dtype, head width) alone
+// (vda_attention_proj_loop):
+//   * bf16 at head width 64 (vits 384, vitb 768, vitl 1024: every shape the
+//     model's gate admits in bf16): the Hopper kernel of
+//     attention_heads_sm90.cuh (TMA, wgmma; a cluster pair of blocks on
+//     each 64-row tile, each block's producer warpgroup and three consumer
+//     warpgroups on half of the heads, the halves of the head-output tile
+//     swapped between the two blocks' shared memory, the projection by
+//     wgmma from it; vda::K7SM90, defined there, is its configuration);
+//   * other head widths and fp32: the kernels below, on the mma.sync loop
+//     of flash_attention.cuh.
+//
 // What bounds it on the H100: operations (vitl: 4*B*N^2*C of attention and
 // 2*B*N*C^2 of projection, ~0.34 ms at the bf16 peak); what it saves is the
 // (B, N, C) attention output's round trip through device memory between the
@@ -30,6 +42,7 @@
 // computed from zero queries and never stored; keys at or beyond valid_len
 // are masked.
 
+#include "attention_heads_sm90.cuh"
 #include "flash_attention.cuh"
 
 namespace vda {
@@ -270,12 +283,30 @@ cudaError_t launch(const void* qkv, const void* w, const float* gb,
 }
 
 }  // namespace
+
+// The mma.sync kernel in bf16 at head width 64, which the Hopper kernel
+// replaces there: the "mma_sync" step of attention_proj_sm90_variants.cu.
+cudaError_t attention_proj_mma_sync(const void* qkv, const void* w,
+                                    const float* gb, const void* x,
+                                    void* out, int b, int n, int heads,
+                                    int valid_len, float scale,
+                                    cudaStream_t stream) {
+  return launch<64>(qkv, w, gb, x, out, nullptr, b, n, heads, 64, valid_len,
+                    scale, true, stream);
+}
+
 }  // namespace vda
+
+// The device code vda_attention_proj runs for head width d: 90 (the Hopper
+// kernel) for bf16 at d = 64, 80 (the mma.sync or fp32 kernels) otherwise.
+extern "C" int vda_attention_proj_loop(int d, int is_bf16) {
+  return is_bf16 && d == vda::sm90::D ? 90 : 80;
+}
 
 // qkv (B, N, 3C), x and out (B, N, C), w (C, C) (out, in), all contiguous in
 // the working dtype and 16-byte aligned; gb (2, C) fp32 [gamma; bias]; ws a
 // (B, N, C) fp32 workspace for fp32 (unused in bf16, may be null).
-// C = heads * d <= 1024.
+// C = heads * d <= 1024.  The Hopper kernel needs scale > 0.
 extern "C" int vda_attention_proj(const void* qkv, const void* w,
                                   const float* gb, const void* x, void* out,
                                   void* ws, int b, int n, int heads, int d,
@@ -285,6 +316,13 @@ extern "C" int vda_attention_proj(const void* qkv, const void* w,
   if (valid_len <= 0 || valid_len > n || heads * d > 1024 || (!bf && !ws))
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
+  if (vda_attention_proj_loop(d, is_bf16) == 90) {
+    const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+    const int c = heads * d;
+    return vda::sm90::launch_heads<vda::K7SM90>(
+        q, q + c, q + 2 * c, w, gb, x, out, b, n, heads, 3 * c, valid_len,
+        scale, st);
+  }
   switch (vda::flash::padded_width(d)) {
     case 16: return vda::launch<16>(qkv, w, gb, x, out, ws, b, n, heads, d, valid_len, scale, bf, st);
     case 32: return vda::launch<32>(qkv, w, gb, x, out, ws, b, n, heads, d, valid_len, scale, bf, st);

@@ -15,7 +15,8 @@
 // alone (vda_attention_loop):
 //   * bf16 at head width 64, every encoder the repo has: the Hopper loop of
 //     flash_attention_sm90.cuh (TMA, wgmma, a producer warpgroup and three
-//     consumer warpgroups of 64 query rows; SM90 below is its tiling);
+//     consumer warpgroups of 64 query rows; vda::SM90, defined there, is
+//     its tiling);
 //   * the other widths K1 takes (multiples of 8 up to 128) and fp32: the
 //     mma.sync / scalar loops of flash_attention.cuh, one block of 4 warps
 //     per (64-row query tile, head, batch).
@@ -25,13 +26,6 @@
 #include "flash_attention_sm90.cuh"
 
 namespace vda {
-
-// The tiling of the Hopper loop, the fastest of the steps that
-// probes/bench_attn_sm90.py times (attention_sm90_variants.cu): K/V tiles
-// of 128 keys in a ring of 2 stages, three consumer warpgroups (192 query
-// rows a block) that each wait for a product before the softmax and
-// overlap one another, and the row sums of P taken by the tensor core.
-using SM90 = sm90::Config<128, 3, 2, false, false, sm90::Mode::kFull, 0, true>;
 
 namespace {
 

@@ -41,7 +41,7 @@
 //  29 r192_bk64   11 with K/V tiles of 64 keys (4 stages)
 //  30 bk96        6 with K/V tiles of 96 keys
 // Each has K/V tiles of 128 keys, two consumers and 3 stages unless named.
-// The library's default (vda::SM90 in attention_qkv.cu) is one of them.
+// The library's default (vda::SM90, flash_attention_sm90.cuh) is one of them.
 // Every configuration keeps the (128 * (NC + 1))-thread block, the TMA maps
 // and the epilogue of the default.
 

@@ -1,6 +1,9 @@
-// The flash-attention loop of one head over one 64-row query tile, shared by
-// K1/K9 (attention_qkv.cu), K7 (attention_proj.cu), K8
-// (segment_attention.cu) and, in its variants, K12 (attention_variants.cu).
+// The flash-attention loop of one head over one 64-row query tile (the
+// mma.sync loop), run by K8 (segment_attention.cu) and, at the head widths
+// and dtypes the Hopper loop (flash_attention_sm90.cuh) does not take, by
+// K1/K9 (attention_qkv.cu), K7 (attention_proj.cu) and, in its variants,
+// K12 (attention_variants.cu), whose mma_sync variant runs it at every
+// width.
 //
 // q, k and v point at the head's first column of batch row 0 of their
 // tensors; consecutive tokens are `rs` elements apart (3*H*D when they are

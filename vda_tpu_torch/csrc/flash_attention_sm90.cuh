@@ -62,9 +62,10 @@
 //     pairs.  A consumer whose 64 rows all lie at or beyond N computes
 //     nothing (the 192-row blocks pad N = 1370 to 1536 rows).
 //
-// attention_qkv.cu's default (SM90) and the measured alternatives
-// (attention_sm90_variants.cu, probes/bench_attn_sm90.py) are
-// configurations of this one kernel.
+// K1/K9's default (SM90, at the end of this file), the measured
+// alternatives (attention_sm90_variants.cu, probes/bench_attn_sm90.py) and
+// K12's ablations (attention_variants.cu) are configurations of this one
+// kernel.
 //
 // Keys at or beyond valid_len are masked in the last tile only.  The
 // scale must be positive (the max is taken over unscaled scores).
@@ -85,8 +86,28 @@ constexpr int Q_BYTES = Q_ROWS * ROW_BYTES;
 // What a consumer computes: the function (kFull), or for the design's
 // measurements its products alone (kProducts: P = bf16(S), no max, exp or
 // normalisation) or the load stream alone (kLoads: tiles are waited for and
-// released, nothing is computed and the output is zero).
-enum class Mode { kFull, kProducts, kLoads };
+// released, nothing is computed and the output is zero).  K12's ablations
+// of the function (attention_variants.cu):
+//   kMatmul      P = bf16(S * scale) over the valid keys, no max, no exp,
+//                no normalisation
+//   kNoMask      no key compare: the loop runs over valid_len keys, which
+//                the caller sets to the padded key count; keys at or beyond
+//                N are TMA's zero rows (score 0, value 0).  Only a last
+//                tile that reaches past valid_len is masked
+//   kFp32Exp     accurate fp32 exp (expf); the row sum adds the unrounded
+//                values, in registers (the tensor core's sums read bf16 P)
+//   kBf16Softmax scores scaled and rounded to bf16, their max, the shifted
+//                score rounded to bf16, times log2 e rounded to bf16 again,
+//                exponentiated by ex2.approx.bf16x2
+enum class Mode {
+  kFull,
+  kProducts,
+  kLoads,
+  kMatmul,
+  kNoMask,
+  kFp32Exp,
+  kBf16Softmax
+};
 
 template <int BK_, int NC_, int STAGES_, bool OVERLAP_, bool PINGPONG_,
           Mode MODE_ = Mode::kFull, int POLY_ = 0, bool SUM_MMA_ = false>
@@ -96,6 +117,11 @@ struct Config {
   static constexpr int bk = BK_, nc = NC_, stages = STAGES_;
   static constexpr bool overlap = OVERLAP_, pingpong = PINGPONG_ && NC_ > 1;
   static constexpr Mode mode = MODE_;
+  // the modes whose output is a softmax, normalised by its row sums
+  static constexpr bool softmax = MODE_ == Mode::kFull ||
+                                  MODE_ == Mode::kNoMask ||
+                                  MODE_ == Mode::kFp32Exp ||
+                                  MODE_ == Mode::kBf16Softmax;
   static constexpr int poly = POLY_;  // softmax_tile's POLY
   // the row sums of P by the tensor core (P times a block of ones) instead
   // of adds in the softmax
@@ -137,6 +163,22 @@ template <int N>
 struct WgmmaSS;
 template <int N>
 struct WgmmaRS;
+
+template <>
+struct WgmmaSS<32> {
+  template <int SD>
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, %18, 1, 1, 0, 0;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "n"(SD));
+  }
+};
 
 template <>
 struct WgmmaSS<64> {
@@ -377,6 +419,100 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[BK / 2],
   }
 }
 
+__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
+  uint32_t y;
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// K12's ablated softmaxes of one S tile, in softmax_tile's layout and
+// contract (m, l, alpha; SUM as there).  kFp32Exp: expf of the scaled
+// shifted score, P its bf16 rounding, the row sums of the unrounded values
+// (always in registers).  kBf16Softmax: see Mode.
+template <int BK, bool MASKED, bool SUM, Mode FN>
+__device__ __forceinline__ void softmax_tile_ablated(
+    const float (&s)[BK / 2], uint32_t (&p)[BK / 16][4], float (&m)[2],
+    float (&l)[2], float (&alpha)[2], float scale, int kvalid, int t) {
+  static_assert(FN == Mode::kFp32Exp || FN == Mode::kBf16Softmax, "mode");
+  constexpr bool kBf = FN == Mode::kBf16Softmax;
+  constexpr float kLog2e = 1.4426950408889634f;
+  // kBf16Softmax's scores: scaled and rounded to bf16 (the max is over
+  // these); kFp32Exp's: unscaled, the scale applied with the shift
+  auto score = [&](float v) {
+    return kBf ? __bfloat162float(__float2bfloat16(v * scale)) : v;
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool out = MASKED && j * 8 + 2 * t + (e & 1) >= kvalid;
+      mx[e >> 1] = fmaxf(mx[e >> 1], out ? -INFINITY : score(s[4 * j + e]));
+    }
+  float mb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);  // finite: a tile has a valid key
+    alpha[r] = kBf ? expf(m[r] - m_new) : expf((m[r] - m_new) * scale);
+    m[r] = m_new;
+    mb[r] = kBf ? m_new : m_new * scale;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool out0 = MASKED && j * 8 + 2 * t >= kvalid;
+      const bool out1 = MASKED && j * 8 + 2 * t + 1 >= kvalid;
+      const float a0 = s[4 * j + 2 * r], a1 = s[4 * j + 2 * r + 1];
+      uint32_t pv;
+      if constexpr (kBf) {
+        // the scores and the max are bf16 values; their difference rounds
+        // to bf16, and its product with log2 e (in fp32: log2 e itself is
+        // 0.18% off in bf16) rounds again
+        const __nv_bfloat162 d2 = __hsub2(
+            __floats2bfloat162_rn(out0 ? -INFINITY : score(a0),
+                                  out1 ? -INFINITY : score(a1)),
+            __float2bfloat162_rn(mb[r]));
+        __nv_bfloat162 d2l = __floats2bfloat162_rn(
+            __low2float(d2) * kLog2e, __high2float(d2) * kLog2e);
+        pv = ex2_bf16x2(*reinterpret_cast<uint32_t*>(&d2l));
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&pv);
+        if (SUM) sum[r] += __low2float(v) + __high2float(v);
+      } else {
+        const float e0 = out0 ? 0.f : expf(fmaf(a0, scale, -mb[r]));
+        const float e1 = out1 ? 0.f : expf(fmaf(a1, scale, -mb[r]));
+        pv = pack_bf16(e0, e1);
+        sum[r] += e0 + e1;
+      }
+      p[j / 2][2 * (j % 2) + r] = pv;
+    }
+  }
+  if (SUM || !kBf) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+  }
+}
+
+// kMatmul's P: bf16(S * scale), keys at or beyond kvalid zero when MASKED.
+template <int BK, bool MASKED>
+__device__ __forceinline__ void pack_p_scaled(const float (&s)[BK / 2],
+                                              uint32_t (&p)[BK / 16][4],
+                                              float scale, int kvalid, int t) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool out0 = MASKED && j * 8 + 2 * t >= kvalid;
+      const bool out1 = MASKED && j * 8 + 2 * t + 1 >= kvalid;
+      p[j / 2][2 * (j % 2) + r] =
+          pack_bf16(out0 ? 0.f : s[4 * j + 2 * r] * scale,
+                    out1 ? 0.f : s[4 * j + 2 * r + 1] * scale);
+    }
+}
+
 template <int N>
 __device__ __forceinline__ void rescale(float (&o)[N],
                                         const float (&alpha)[2]) {
@@ -560,6 +696,28 @@ __global__ void __launch_bounds__(C::threads, 1)
         else
           softmax_tile<BK, false, C::poly, !C::sum_mma>(s, pn, m, l, alpha,
                                                         sl2, BK, t);
+      } else if constexpr (C::mode == Mode::kNoMask) {
+        // only a last tile past the padded key count compares keys
+        if (kt == n_tiles - 1 && valid_len % BK)
+          softmax_tile<BK, true, C::poly, !C::sum_mma>(
+              s, pn, m, l, alpha, sl2, valid_len - kt * BK, t);
+        else
+          softmax_tile<BK, false, C::poly, !C::sum_mma>(s, pn, m, l, alpha,
+                                                        sl2, BK, t);
+      } else if constexpr (C::mode == Mode::kFp32Exp ||
+                           C::mode == Mode::kBf16Softmax) {
+        if (kt == n_tiles - 1)
+          softmax_tile_ablated<BK, true, !C::sum_mma, C::mode>(
+              s, pn, m, l, alpha, scale, valid_len - kt * BK, t);
+        else
+          softmax_tile_ablated<BK, false, !C::sum_mma, C::mode>(
+              s, pn, m, l, alpha, scale, BK, t);
+      } else if constexpr (C::mode == Mode::kMatmul) {
+        if (kt == n_tiles - 1)
+          pack_p_scaled<BK, true>(s, pn, scale, valid_len - kt * BK, t);
+        else
+          pack_p_scaled<BK, false>(s, pn, scale, BK, t);
+        alpha[0] = alpha[1] = 1.f;
       } else {
         pack_p<BK>(s, pn);
         alpha[0] = alpha[1] = 1.f;
@@ -669,10 +827,10 @@ __global__ void __launch_bounds__(C::threads, 1)
         release(empty_v(kt));
       }
     }
-    if constexpr (C::mode == Mode::kFull && C::sum_mma) {
+    if constexpr (C::softmax && C::sum_mma) {
       l[0] = ls[0];  // every column of the (64, 8) sums is the row sum
       l[1] = ls[2];
-    } else if constexpr (C::mode == Mode::kFull) {
+    } else if constexpr (C::softmax) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -744,4 +902,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 }  // namespace sm90
+
+// K1/K9's configuration of the loop (attention_qkv.cu), the fastest of the
+// steps that probes/bench_attn_sm90.py times (attention_sm90_variants.cu):
+// K/V tiles of 128 keys in a ring of 2 stages, three consumer warpgroups
+// (192 query rows a block) that each wait for a product before the softmax
+// and overlap one another, and the row sums of P taken by the tensor core.
+// K12's "full" (attention_variants.cu) runs the same configuration.
+using SM90 = sm90::Config<128, 3, 2, false, false, sm90::Mode::kFull, 0, true>;
+
 }  // namespace vda

@@ -41,6 +41,8 @@ def reset_launch_counts() -> None:
     attention_kernel.launches_by_loop = dict.fromkeys(
         attention_kernel.launches_by_loop, 0)
     attn_proj_kernel.launches = 0
+    attn_proj_kernel.launches_by_loop = dict.fromkeys(
+        attn_proj_kernel.launches_by_loop, 0)
     norm_kernel.launches = 0
     quant.launches = 0
     quant.gemm_launches_by_loop = dict.fromkeys(quant.gemm_launches_by_loop,
@@ -53,3 +55,5 @@ def reset_launch_counts() -> None:
     stream_kernel.launches = 0
     for probe in _probes():
         probe.launches = 0
+    k12 = _probes()[0]
+    k12.launches_by_loop = dict.fromkeys(k12.launches_by_loop, 0)

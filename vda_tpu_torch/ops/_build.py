@@ -47,6 +47,10 @@ _SIGNATURES = {
     # qkv, w, gamma_bias, x, out, ws, B, N, H, D, valid_len, scale, is_bf16,
     # stream
     "vda_attention_proj": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    # D, is_bf16 -> 90 (K7's Hopper kernel) or 80
+    "vda_attention_proj_loop": [_I, _I],
+    # qkv, w, gamma_bias, x, out, B, N, H, valid_len, scale, variant, stream
+    "vda_attention_proj_sm90_variant": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     # x, out, itab, ftab, B, OH, OW, C, block_rows, stride_b, stride_h,
     # stride_w, stream
     "vda_resize_bilinear": [_P] * 4 + [_I] * 5 + [_I64] * 3 + [_P],
@@ -79,6 +83,8 @@ _SIGNATURES = {
     "vda_matmul_probe": [_P] * 3 + [_I] * 4 + [_P],
     # q, k, v, out, B, N, H, D, row_stride, valid_len, scale, variant, stream
     "vda_attention_variant": [_P] * 4 + [_I] * 4 + [_I64, _I, _F, _I, _P],
+    # D, variant -> 90 (the Hopper loop) or 80
+    "vda_attention_variant_loop": [_I, _I],
     # q, k_new, v_new, k_buf, v_buf, pe, valid, out, BHW, rows, C, heads,
     # group, scale, features, stream
     "vda_stream_probe": [_P] * 8 + [_I] * 5 + [_F, _I, _P],

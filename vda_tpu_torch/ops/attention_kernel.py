@@ -29,8 +29,8 @@ width) alone (``loop_of``):
 * other head widths (multiples of 8 up to 128) and fp32: the loop of
   ``csrc/flash_attention.cuh`` (one block of 4 warps per 64-row query tile,
   ``mma.sync`` m16n8k16 on ``ldmatrix`` operands double-buffered by
-  cp.async in bf16; scalar FMAs through shared memory in fp32), which K7,
-  K8 and K12 also run.
+  cp.async in bf16; scalar FMAs through shared memory in fp32), which K8
+  also runs (and K7 and K12 at those widths).
 
 The one C entry point takes a q, a k and a v pointer and one row stride: K1
 passes column offsets 0, H·D and 2·H·D of the fused tensor with a stride of

@@ -8,22 +8,45 @@ the port with ``fuse_proj=True``:
     out = x + gamma * (attn(q, k, v) @ W^T + bias)
 
 over the fused qkv projection (B, N, 3C); vitl runs it at (32, 1370, 3072)
-with W (1024, 1024), 24 times a window.
+with W (1024, 1024), 24 times a window, and at (1, 1370, 3072) 24 times a
+stream step.
 
 What bounds it on the H100: operations (vitl: 3.4e11, 0.34 ms at the bf16
 peak).  The split path writes the (B, N, C) attention output and reads it
 back for the projection, then makes two more elementwise passes for the
-LayerScale and the residual; the kernel (``csrc/attention_proj.cu``) keeps
-the attention output of a 64-row query tile, all heads of it, in shared
-memory and projects it there.  One block owns one batch row and one query
-tile across all heads, because the projection contracts over every head:
-it runs K1's flash loop head by head (``csrc/flash_attention.cuh``), then
-walks W in 64 x 64 chunks (cp.async, double-buffered) into ``mma.sync`` with
-fp32 accumulators, and the epilogue adds bias, LayerScale and residual in
-fp32 with one rounding.  In fp32 the 64 x C output tile does not fit shared
-memory at C=1024 (256 KB), so it goes to a device-memory workspace that the
-same block reads back.  W is the port's ``Linear`` weight as stored,
-(out, in); the JAX function takes it (in, out).
+LayerScale and the residual; the kernel keeps the attention output of a
+64-row query tile, all heads of it, in shared memory and projects it
+there.  One block owns one batch row and one query tile across all heads,
+because the projection contracts over every head.  The C entry point picks
+the device code by (dtype, head width) alone (``loop_of``):
+
+* bf16 at head width 64 (vits, vitb and vitl: every shape the model's gate
+  admits in bf16): the Hopper kernel (``csrc/attention_heads_sm90.cuh``).
+  A cluster pair of blocks owns each 64-row tile, each block half of the
+  heads.  In a block, a producer warpgroup streams, by TMA, each
+  consumer's Q and K/V tiles of 128 keys into rings guarded by mbarriers;
+  three consumer warpgroups run three heads at a time on K1's Hopper
+  softmax loop (``wgmma``, the row sums by the tensor core) and write each
+  head's output, rounded to bf16, into the block's half of a head-output
+  tile in shared memory (64 KB at C = 1024) in the swizzled layout
+  ``wgmma`` reads.  The two blocks then swap their halves (a bulk copy into
+  the other block's freed rings), each consumer projects chunks of 64
+  output columns of its block's half from the whole tile against W tiles
+  streamed by TMA, and the epilogue adds bias, LayerScale and residual in
+  fp32 with one rounding (16-byte accesses after a transpose of the sums
+  within quads of threads).  Its design steps:
+  ``probes/bench_attn_proj_sm90.py``.
+* other head widths and fp32 (``csrc/attention_proj.cu``): K1's
+  ``mma.sync`` loop (``csrc/flash_attention.cuh``) head by head into a
+  shared-memory tile, W in 64 x 64 chunks (cp.async, double-buffered) into
+  ``mma.sync``; in fp32 the 64 x C output tile does not fit shared memory
+  at C=1024 (256 KB), so it goes to a device-memory workspace that the
+  same block reads back.
+
+W is the port's ``Linear`` weight as stored, (out, in); the JAX function
+takes it (in, out).  Launches are counted (``launches``) and counted by
+device code (``launches_by_loop``: "sm90" the Hopper kernel, "sm80" the
+other).
 
 The function differs from the split block on purpose: the split block
 rounds the projection to the working dtype and multiplies by gamma in that
@@ -32,6 +55,8 @@ rounding (``pallas_attention.py`` ``_attn_proj_kernel``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -43,6 +68,17 @@ from vda_tpu_torch.ops.attention_kernel import (
 )
 
 launches = 0  # kernel launches made by ``flash_attention_qkv_proj``
+launches_by_loop = {"sm90": 0, "sm80": 0}  # the same launches by device code
+
+
+@functools.lru_cache(maxsize=None)
+def loop_of(dtype, dh: int) -> str:
+    """The device code the C entry point runs for ``dtype`` at head width
+    ``dh``, as it reports it (``vda_attention_proj_loop``): "sm90" (the
+    Hopper kernel) or "sm80"."""
+    code = _build.library().vda_attention_proj_loop(
+        dh, int(dtype == torch.bfloat16))
+    return "sm90" if code == 90 else "sm80"
 
 
 def attn_proj_fits(n: int, heads: int, dh: int, itemsize: int = 2) -> bool:
@@ -132,4 +168,5 @@ def flash_attention_qkv_proj(qkv, w, gamma_bias, x_res, heads: int,
         _build.stream_ptr(qkv))
     _build.check(err, "vda_attention_proj")
     launches += 1
+    launches_by_loop[loop_of(qkv.dtype, c // heads)] += 1
     return out

@@ -3,12 +3,16 @@ package's ``scripts/bench_int8.py`` + ``scripts/bench_int8_pallas.py``
 (``bench_int8``: K13 and K11), ``scripts/bench_attn_variants.py``
 (``bench_attn_variants``: K12) and ``scripts/probe_stream_kernel.py``
 (``probe_stream_kernel``: K14), and the design steps of K1/K9's Hopper loop
-(``bench_attn_sm90``, no JAX counterpart)::
+(``bench_attn_sm90``), K7's Hopper kernel (``bench_attn_proj_sm90``) and
+K11/K13's Hopper GEMM loop (``bench_gemm_sm90``), which have no JAX
+counterpart::
 
     python -m vda_tpu_torch.probes.bench_int8
     python -m vda_tpu_torch.probes.bench_attn_variants [variant ...]
     python -m vda_tpu_torch.probes.probe_stream_kernel [stage ...]
     python -m vda_tpu_torch.probes.bench_attn_sm90 [variant ...]
+    python -m vda_tpu_torch.probes.bench_attn_proj_sm90 [step ...]
+    python -m vda_tpu_torch.probes.bench_gemm_sm90 [variant ...]
 
 Each holds every kernel arm against its plain twin and exits non-zero on a
 disagreement, or when an arm outlives its time budget.  Times are CUDA

@@ -5,30 +5,49 @@ at the vitl encoder shape on the card.
     python -m vda_tpu_torch.probes.bench_attn_variants --against DIR
 
 The counterpart of ``scripts/bench_attn_variants.py``.  Over seeded bf16
-qkv of (32, 1370, 3 x 16 x 64), each variant (``csrc/attention_variants.cu``,
-instantiations of K1's loop in ``csrc/flash_attention.cuh``) is timed by
-CUDA events, printed with its rate in TF/s (4 B N^2 H D operations, as the
-script counts them) and held against its plain twin within 3.9e-3 of the
-output's scale (the repo's bf16-softmax bound, docs/PARITY.md; ``bf16sm``
-2e-2, see ``TOL_BF16SM``).
+qkv of (32, 1370, 3 x 16 x 64), each variant (``csrc/attention_variants.cu``)
+is timed by CUDA events, printed with its rate in TF/s (4 B N^2 H D
+operations, as the script counts them) and held against its plain twin
+within 3.9e-3 of the output's scale (the repo's bf16-softmax bound,
+docs/PARITY.md; ``bf16sm`` 2e-2, see ``TOL_BF16SM``).
 
-Function variants (JAX's ``mode`` / ``exp_dtype``): ``full`` (K1),
-``matmul`` (no softmax), ``nomask`` (the key compare gone, the 38 padded
-keys of the 1408-key buffer taking part as zero rows), ``fp32exp``,
-``bf16sm``, ``exp2``.  Geometry variants, the port's tiling in place of
-JAX's block sizes: ``bq128`` (128 query rows a block, 8 warps, for JAX's
-``bq*``), ``bk32`` / ``bk128`` (K/V tiles of 32 / 128 rows: the keys a step,
-for ``np_len``), ``heads2`` (two heads a block, for ``g*``).
+At head width 64 every variant but ``mma_sync`` is a configuration of K1's
+Hopper loop (``csrc/flash_attention_sm90.cuh``; ``heads2`` of
+``csrc/attention_heads_sm90.cuh``), so the shares it measures are those of
+the loop K1 and K9 run; other head widths run the old ``mma.sync`` loop
+(``csrc/flash_attention.cuh``), as K1 does there.  ``loop_of`` says which
+and ``launches_by_loop`` counts.
+
+Function variants (JAX's ``mode`` / ``exp_dtype``): ``full`` (K1's own
+configuration, bit-identical with K1), ``matmul`` (no softmax, no row
+sums), ``nomask`` (the key compare gone, the 38 padded keys of the
+1408-key buffer taking part as TMA's zero rows), ``fp32exp`` (its row sums
+in registers: the tensor core's sums read the bf16 P, not the fp32 values
+this variant sums), ``bf16sm``, ``exp2`` (on the Hopper loop the same
+configuration as ``full``, which already takes the max over unscaled
+scores and one FMA and ``ex2.approx`` a score: nothing differs, so its
+time is a second reading of ``full``).  Geometry variants, the loop's
+tiling in place of JAX's block sizes: ``bq128`` (two consumers, 128 query
+rows a block, for JAX's ``bq*``), ``bk32`` / ``bk128`` (K/V tiles of 32 /
+128 keys, for ``np_len``; 128 is ``full``'s own tile, so ``bk128`` is
+``full``'s configuration), ``heads2`` (two consumers on two heads of the
+same 64 rows, for ``g*``).  ``mma_sync``: the old loop's ``full``, the
+loop K1 ran before the Hopper loop.
 
 ``--against DIR`` runs K1, K7, K8 and K9 at their ``chip_smoke.py`` shapes
 in a child process of this tree and of the checkout at DIR, in turns (DIR,
-this, this, DIR), and prints whether each output is bit-identical across the
-two and each time; it exits non-zero when an output differs.
+this, this, DIR), and prints each time and whether each output is
+bit-identical across the two.  K1, K8 and K9 must be; K7 moved to a new
+kernel whose sums run in another order, so it is held to the parent within
+its bound against its twin, 2e-2 of the output's scale, and the largest
+difference is printed.  It exits non-zero when K1, K8 or K9 differ or K7
+is out of its bound.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -53,11 +72,23 @@ VARIANTS = {"full": (0, "full"), "matmul": (1, "matmul"),
             "nomask": (2, "nomask"), "fp32exp": (3, "fp32exp"),
             "bf16sm": (4, "bf16sm"), "exp2": (5, "exp2"),
             "bq128": (6, "full"), "bk32": (7, "full"), "bk128": (8, "full"),
-            "heads2": (9, "full")}
+            "heads2": (9, "full"), "mma_sync": (10, "full")}
 GEOMETRY = ("bq128", "bk32", "bk128", "heads2")  # head widths up to 64
 LOG2E = 1.4426950408889634
+TOL_K7 = 2e-2  # K7 against the parent's K7: its bound against its twin
 
 launches = 0  # K12 launches made by ``attn``
+launches_by_loop = {"sm90": 0, "sm80": 0}  # the same launches by loop
+
+
+@functools.lru_cache(maxsize=None)
+def loop_of(dh: int, variant: str) -> str:
+    """The loop the C entry point runs ``variant`` on at head width
+    ``dh``, as it reports it (``vda_attention_variant_loop``): "sm90" (the
+    Hopper loop) or "sm80" (the mma.sync loop)."""
+    code = _build.library().vda_attention_variant_loop(dh,
+                                                       VARIANTS[variant][0])
+    return "sm90" if code == 90 else "sm80"
 
 
 def tolerance(variant: str) -> float:
@@ -112,9 +143,9 @@ def attn_reference(qkv, heads: int, scale: float, mode: str = "full",
 def attn(qkv, heads: int, scale: float, variant: str = "full",
          np_len: int | None = None):
     """K12: ``variant`` of K1 over the fused bf16 (B, N, 3 H D) qkv (K1's
-    layout, read in place).  ``nomask`` runs over ``np_len`` keys (a
-    multiple of 64, at least N; default N rounded up to 64).  Returns (B, N,
-    H D)."""
+    layout, read in place), on the loop ``loop_of`` names.  ``nomask`` runs
+    over ``np_len`` keys (a multiple of 64, at least N; default N rounded up
+    to 64).  Returns (B, N, H D)."""
     global launches
     idx, mode = VARIANTS[variant]
     b, n, hd3 = qkv.shape
@@ -144,6 +175,7 @@ def attn(qkv, heads: int, scale: float, variant: str = "full",
         float(scale), idx, _build.stream_ptr(qkv))
     _build.check(err, "vda_attention_variant")
     launches += 1
+    launches_by_loop[loop_of(d, variant)] += 1
     return out
 
 
@@ -172,8 +204,9 @@ def run(variants=tuple(VARIANTS), reps: int = 10, seed: int = 0,
             finite = bool(torch.isfinite(got).all())
             del ref
         tol = tolerance(name)
-        rows.append(dict(variant=name, ms=ms, tflops=flops / ms / 1e9,
-                         max_rel=err, tol=tol, ok=finite and err < tol))
+        rows.append(dict(variant=name, loop=loop_of(d, name), ms=ms,
+                         tflops=flops / ms / 1e9, max_rel=err, tol=tol,
+                         ok=finite and err < tol))
     return rows
 
 
@@ -199,6 +232,7 @@ def time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 g = torch.Generator(device="cuda").manual_seed(0)
 bf = torch.bfloat16
+k7_path = sys.argv[2]  # K7's output is saved here for the comparison
 b, n, h, d = 32, 1370, 16, 64
 c = h * d
 def rnd(*s, scale=1.0):
@@ -221,6 +255,8 @@ out = {}
 for name, f in calls.items():
     y = f()
     torch.cuda.synchronize()
+    if name == "K7":
+        torch.save(y.cpu(), k7_path)
     out[name] = {"sha256": hashlib.sha256(
         y.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
         "ms": time_ms(f, 20)}
@@ -230,27 +266,43 @@ print(json.dumps(out))
 
 def against(other: str) -> int:
     """K1, K7, K8, K9 of this tree against the checkout at ``other``, in
-    turns; 0 when every output is bit-identical."""
+    turns; 0 when K1, K8 and K9 are bit-identical and K7 is within
+    ``TOL_K7`` of the other tree's K7."""
     other = os.path.abspath(other)
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
     runs = []
-    for tree in (other, here, here, other):
-        r = subprocess.run([sys.executable, "-c", _DIGEST, tree], cwd=tree,
-                           capture_output=True, text=True, timeout=900)
+    for i, tree in enumerate((other, here, here, other)):
+        k7_path = os.path.join(_build.BUILD_DIR, f"against_k7_{i}.pt")
+        r = subprocess.run([sys.executable, "-c", _DIGEST, tree, k7_path],
+                           cwd=tree, capture_output=True, text=True,
+                           timeout=900)
         if r.returncode:
             print(r.stdout + r.stderr, file=sys.stderr)
             return 1
-        runs.append((tree, json.loads(r.stdout.strip().splitlines()[-1])))
+        runs.append((tree, json.loads(r.stdout.strip().splitlines()[-1]),
+                     k7_path))
     ok = True
     for name in runs[0][1]:
-        digests = {res[name]["sha256"] for _, res in runs}
+        digests = {res[name]["sha256"] for _, res, _ in runs}
         same = len(digests) == 1
-        ok &= same
-        print(json.dumps({"kernel": name, "bit_identical": same,
-                          "ms_in_turns": [[os.path.basename(t) or t,
-                                           res[name]["ms"]]
-                                          for t, res in runs]}), flush=True)
+        line = {"kernel": name, "bit_identical": same,
+                "ms_in_turns": [[os.path.basename(t) or t, res[name]["ms"]]
+                                for t, res, _ in runs]}
+        if name == "K7":
+            theirs = torch.load(runs[0][2]).float()
+            mine = torch.load(runs[1][2]).float()
+            diff = float((mine - theirs).abs().max())
+            line.update(max_abs_vs_other=diff,
+                        max_rel_vs_other=diff / float(theirs.abs().max()),
+                        tol=TOL_K7)
+            ok &= line["max_rel_vs_other"] < TOL_K7
+        else:
+            ok &= same
+        print(json.dumps(line), flush=True)
+    for _, _, path in runs:
+        os.remove(path)
     return 0 if ok else 1
 
 
@@ -270,7 +322,8 @@ def main(argv=None) -> int:
         return against(args.against)
     rows = run(args.variants or list(VARIANTS), args.reps)
     for r in rows:
-        print(f"{r['variant']:>8}: {r['ms']:7.3f} ms  {r['tflops']:6.1f} TF/s"
+        print(f"{r['variant']:>8} ({r['loop']}): {r['ms']:7.3f} ms  "
+              f"{r['tflops']:6.1f} TF/s"
               f"  max_rel {r['max_rel']:.2e}"
               f"  {'agrees' if r['ok'] else 'DISAGREES'}", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))

@@ -51,9 +51,11 @@ import torch
 
 # kind -> substrings of the kernel name; the first kind that matches wins
 KINDS = (
-    ("K7 attention_proj", ("attention_proj_",)),
+    # K7: the Hopper kernel (bf16, head width 64) and the mma.sync ones
+    ("K7 attention_proj", ("attention_heads_sm90_kernel", "attention_proj_")),
     ("K10 resize_bilinear", ("resize_bilinear_kernel",)),
-    ("K1 attention_qkv", ("attention_qkv_",)),  # K9 launches it too
+    # K1 (K9 launches it too): the Hopper loop and the mma.sync / fp32 ones
+    ("K1 attention_qkv", ("attention_sm90_kernel", "attention_qkv_")),
     ("K2 layer_norm", ("_ln_fwd",)),
     ("K3 temporal_block", ("temporal_block_kernel",)),
     ("K4 attention_block", ("attention_block_kernel",)),
