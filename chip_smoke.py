@@ -49,7 +49,8 @@ with every launch counter set to 0 just before it and read just after:
     (``vda_tpu_torch.probes``): every K12 variant of K1 at (32, 1370,
     3072) (all but ``mma_sync`` on the Hopper loop), K13 and K11's
     dynamic-quant arm at (45056, 1024) @ (1024, 3072), K14's four stages
-    and K6's two, each arm against its twin;
+    and K6's two, and the design steps and stages of K3/K4's Hopper chain
+    at vitl's four temporal shapes, each arm against its twin;
   * ``host_sync``: a steady ``StreamingDepth.submit`` with the device held
     by ``torch.cuda._sleep`` (~50 ms, or three times an idle submit's host
     time if longer) returns in less host time than the sleep (vits; vitl's
@@ -71,6 +72,20 @@ csrc/attention_heads_sm90.cuh: its lines, at the fused window's (32, 1370,
 time (``split_ms``), and every K7 launch of phases ``kernels``,
 ``fused_window`` and ``fused_stream`` is asserted to have run it
 (``attn_proj_kernel.launches_by_loop``).
+K3 and K4 in bf16 run Hopper code: K3 at vitl's width (C 256, 8 heads, T
+32) the fused kernel of csrc/temporal_fused_sm90.cuh (the whole block on
+64-row tiles in shared memory, the weights streamed by TMA to cluster
+pairs), every other shape the chain of csrc/temporal_sm90.cuh (an LN pass,
+the products on the GEMM mainloop of csrc/gemm_sm90.cuh with bias, residual
+and GEGLU epilogues, a per-sequence tensor-core attention): their lines, at
+vitl's mm3 and mm2 (K3) and mm0 and mm1 (K4) shapes, carry the time of the
+kernels they replaced on the same values (``old_ms``, the largest |new -
+old| beside it) and of the split path of library calls (``split_ms``);
+every K3/K4 launch of phases ``main_path``, ``vits_window`` and
+``fused_window`` is asserted to have run the Hopper code
+(``temporal_kernel.launches_by_loop``), the fp32 cases to stay on the old
+kernels, and phase ``probes`` runs the design steps and the chain's stages
+(``probes.bench_temporal_sm90``) against their twins.
 K11 and K13 run the Hopper GEMM mainloop (csrc/gemm_sm90.cuh): their lines
 carry the old mma.sync loop's time on the same values (``mma_sync_ms``,
 ``probes.bench_gemm_sm90``'s ``mma_sync`` step) and the largest |new -
@@ -125,7 +140,7 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
            "vda_tpu/ops/pallas_attention.py:361"),
     "K2": ("triton", "vda_tpu_torch/ops/norm_kernel.py",
            "vda_tpu/ops/pallas_norm.py:71"),
-    "K3": ("cuda", "vda_tpu_torch/csrc/temporal_block.cu",
+    "K3": ("cuda", "vda_tpu_torch/csrc/temporal_fused_sm90.cuh",
            "vda_tpu/ops/pallas_temporal.py:234"),
     "K4": ("cuda", "vda_tpu_torch/csrc/temporal_block.cu",
            "vda_tpu/ops/pallas_temporal.py:162"),
@@ -285,6 +300,16 @@ def k7_by_loop_ok(counts) -> bool:
                                                  "sm80": 0}
 
 
+def temporal_by_loop_ok(counts) -> bool:
+    """Every K3/K4 launch since the counters were reset (all bf16 at
+    head widths 32, 48 and 128 on the model paths) ran the Hopper chain."""
+    from vda_tpu_torch.ops import temporal_kernel
+
+    return temporal_kernel.launches_by_loop == {
+        "K3": {"sm90": counts["K3"], "sm80": 0},
+        "K4": {"sm90": counts["K4"], "sm80": 0}}
+
+
 def gemm_by_loop_ok(counts, loops, since=None) -> bool:
     """Every K11/K13 launch counted in ``counts`` ran the Hopper GEMM loop:
     ``loops`` is ``quant.gemm_launches_by_loop`` read with ``counts``, and
@@ -320,15 +345,16 @@ def phase_kernels(model):
         """cost: (bytes, operations) of the call, the operations at the peak
         rate of ``ops_dtype`` (default: the output's); library: one PyTorch
         call computing the same function, timed as a yardstick only; timed:
-        other calls to time beside it, by name (``mma_sync``: the old loop
-        on the same values, whose largest difference from the kernel is
-        printed too)."""
+        other calls to time beside it, by name (``mma_sync`` or ``old``: the
+        code the kernel replaced on the same values, whose largest
+        difference from the kernel is printed too)."""
         got = kern()
         ref = twin(fp32=twin_inputs_fp32)
         extra = {}
-        if "mma_sync" in timed:
-            extra["max_abs_vs_mma_sync"] = float(
-                (got.float() - timed["mma_sync"]().float()).abs().max())
+        for key in ("mma_sync", "old"):  # the code the kernel replaced
+            if key in timed:
+                extra[f"max_abs_vs_{key}"] = float(
+                    (got.float() - timed[key]().float()).abs().max())
         torch.cuda.synchronize()
         err, r = rel(ref, got)
         if not torch.isfinite(got).all():
@@ -387,29 +413,52 @@ def phase_kernels(model):
               library=lambda: F.layer_norm(x, (1024,), w.to(bf), b_.to(bf),
                                            eps))
         del x
-    # K3: mm3, (5476, 32, 256); K4: mm0's attention sub-block, (1369, 32,
-    # 1024).  Operations a row: K3 40 C^2 of products + 8 T C of attention,
-    # K4 8 C^2 + 4 T C; bytes: h in and out and the bf16 weights
+    # K3 at mm3 and mm2, (5476, 32, 256) and (1369, 32, 256); K4 at mm0's
+    # and mm1's attention sub-blocks, (1369, 32, 1024) and (361, 32, 1024),
+    # all on the Hopper chain, each beside the kernels it replaced on the
+    # same values (the probe's "sm80" step: old_ms, max_abs_vs_old) and the
+    # split path of library calls (split_ms).  Operations a row: K3 40 C^2
+    # of products + 8 T C of attention, K4 8 C^2 + 4 T C; bytes: h in and
+    # out and the bf16 weights (probes/bench_temporal_sm90.py cost)
+    from vda_tpu_torch.probes import bench_temporal_sm90 as bt
+
     mms = model.head.motion_modules
-    blk3 = mms[3].temporal_transformer.transformer_blocks[0]
-    blk0 = mms[0].temporal_transformer.transformer_blocks[0]
+    blks = [mm.temporal_transformer.transformer_blocks[0] for mm in mms]
+    blk3, blk0 = blks[3], blks[0]
     pe3 = blk3.attention_blocks[0].pos_encoder.pe[0]
     pe0 = blk0.attention_blocks[0].pos_encoder.pe[0]
-    bd, t, c = 5476, 32, 256
-    h3 = torch.randn(bd, t, c, device="cuda", generator=g).to(bf)
-    check("K3", h3.shape, lambda: k34.temporal_block_fused(blk3, h3, pe3, 8),
-          lambda fp32: k34.temporal_block_reference(blk3, h3, pe3, 8), False,
-          TOL["K3"], cost=(2 * h3.numel() * 2 + 20 * c * c * 2,
-                           bd * t * (40 * c * c + 8 * t * c)))
-    del h3
-    bd, t, c = 1369, 32, 1024
-    h0 = torch.randn(bd, t, c, device="cuda", generator=g).to(bf)
+    for i, bd in ((3, 5476), (2, 1369)):
+        blk, t, c = blks[i], 32, 256
+        pe = blk.attention_blocks[0].pos_encoder.pe[0]
+        h3 = torch.randn(bd, t, c, device="cuda", generator=g).to(bf)
+        sw = bt.split_weights(blk, t, pe)
+        if k34.loop_of(bf, c, 8, t, True) != "sm90":
+            raise AssertionError(f"K3 at {(bd, t, c)} is not on the Hopper "
+                                 "chain")
+        check("K3", h3.shape,
+              lambda: k34.temporal_block_fused(blk, h3, pe, 8),
+              lambda fp32: k34.temporal_block_reference(blk, h3, pe, 8),
+              False, TOL["K3"], cost=bt.cost("K3", bd, t, c),
+              old=lambda: bt.variant("sm80", blk, h3, pe, True),
+              split=lambda: bt.split_path(sw, h3, True))
+        del h3, sw
+    for i, bd in ((0, 1369), (1, 361)):
+        blk, t, c = blks[i], 32, 1024
+        pe = blk.attention_blocks[0].pos_encoder.pe[0]
+        a, nrm = blk.attention_blocks[0], blk.norms[0]
+        h0 = torch.randn(bd, t, c, device="cuda", generator=g).to(bf)
+        sw = bt.split_weights(blk, t, pe)
+        if k34.loop_of(bf, c, 8, t, False) != "sm90":
+            raise AssertionError(f"K4 at {(bd, t, c)} is not on the Hopper "
+                                 "chain")
+        check("K4", h0.shape,
+              lambda: k34.attention_block_fused(a, nrm, h0, pe, 8),
+              lambda fp32: k34.attention_block_reference(a, nrm, h0, pe, 8),
+              False, TOL["K4"], cost=bt.cost("K4", bd, t, c),
+              old=lambda: bt.variant("sm80", blk, h0, pe, False),
+              split=lambda: bt.split_path(sw, h0, False))
+        del h0, sw
     a0, n0 = blk0.attention_blocks[0], blk0.norms[0]
-    check("K4", h0.shape, lambda: k34.attention_block_fused(a0, n0, h0, pe0, 8),
-          lambda fp32: k34.attention_block_reference(a0, n0, h0, pe0, 8), False,
-          TOL["K4"], cost=(2 * h0.numel() * 2 + 4 * c * c * 2,
-                           bd * t * (8 * c * c + 4 * t * c)))
-    del h0
 
     # K5 at the shapes of the streaming first step (vitl, T = 1) and of the
     # vits window (T = 32), 8 heads; q, k, v are column slices of one fused
@@ -711,6 +760,10 @@ def phase_kernels(model):
     check("K2", x.shape, lambda: k2.fused_layer_norm(x, w, b_, 1e-5),
           lambda fp32: k2.layer_norm_reference(x, w, b_, 1e-5), True,
           TOL["fp32"])
+    if k34.loop_of(torch.float32, 256, 8, 32, True) != "sm80" or \
+            k34.loop_of(torch.float32, 1024, 8, 32, False) != "sm80":
+        raise AssertionError("fp32 K3/K4 left the kernels of "
+                             "temporal_block.cu")
     h = torch.randn(7, 32, 256, device="cuda", generator=g)
     check("K3", h.shape, lambda: k34.temporal_block_fused(blk3, h, pe3, 8),
           lambda fp32: k34.temporal_block_reference(blk3, h, pe3, 8), True,
@@ -806,9 +859,9 @@ def phase_main_path(model):
     want = {k: v * n_windows for k, v in PER_WINDOW.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-    if not by_loop_ok(counts):
+    if not by_loop_ok(counts) or not temporal_by_loop_ok(counts):
         raise AssertionError("a K1 launch of the window missed the Hopper "
-                             "loop")
+                             "loop, or a K3/K4 launch the Hopper chain")
     if depths.shape != (N_FRAMES, SIZE, SIZE):
         raise AssertionError(f"depth shape {depths.shape}")
     if not np.isfinite(depths).all() or not depths.std() > 0:
@@ -934,9 +987,11 @@ def phase_vits_window(frames):
     got = vt.forward(model, x)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    if counts != PER_VITS_WINDOW or not by_loop_ok(counts):
+    if counts != PER_VITS_WINDOW or not by_loop_ok(counts) \
+            or not temporal_by_loop_ok(counts):
         raise AssertionError(f"vits launches {counts} != {PER_VITS_WINDOW}, "
-                             "or a K1 launch missed the Hopper loop")
+                             "or a K1 launch missed the Hopper loop, or a K3 "
+                             "launch the Hopper chain")
     window_ms = time_ms(lambda: vt.forward(model, x), reps=3)
     plain_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
                        reps=2)
@@ -973,9 +1028,11 @@ def phase_fused_window(model, frames):
     counts = ops.launch_counts()
     n_windows = len(range(0, len(frames), 22))
     want = {k: v * n_windows for k, v in PER_FUSED_WINDOW.items()}
-    if counts != want or not k7_by_loop_ok(counts):
+    if counts != want or not k7_by_loop_ok(counts) \
+            or not temporal_by_loop_ok(counts):
         raise AssertionError(f"fused launch counts {counts} != {want}, or a "
-                             "K7 launch missed the Hopper kernel")
+                             "K7 launch missed the Hopper kernel, or a K3/K4 "
+                             "launch the Hopper chain")
     if depths.shape != frames.shape[:3] or not np.isfinite(depths).all() \
             or not depths.std() > 0:
         raise AssertionError("fused depths not finite, constant or of the "
@@ -1376,16 +1433,31 @@ def phase_probes():
     from vda_tpu_torch import ops
     from vda_tpu_torch.ops import quant
     from vda_tpu_torch.probes import (bench_attn_variants, bench_int8,
+                                      bench_temporal_sm90,
                                       probe_stream_kernel)
 
     reps, stream_reps = 5, 20
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    bt = bench_temporal_sm90
+    bt.launches = bt.stage_launches = 0
     rows = {"attn_variants": bench_attn_variants.run(reps=reps),
             "int8": bench_int8.run(reps=reps),
-            "stream": probe_stream_kernel.run(reps=stream_reps)}
+            "stream": probe_stream_kernel.run(reps=stream_reps),
+            "temporal_sm90": bt.run(reps=reps)}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    # K3/K4's design steps: each step and stage a warm-up, ``reps`` timed
+    # calls and one checked call at each of the four shapes (the fused
+    # steps at K3's alone)
+    n_steps = sum(len(bt.VARIANTS) - (0 if k == "K3" else len(bt.K3_ONLY))
+                  for k, *_ in bt.SHAPES)
+    want_bt = (n_steps * (reps + 2),
+               sum(len(bt.COUNT[k]) for k, *_ in bt.SHAPES) * (reps + 2))
+    if (bt.launches, bt.stage_launches) != want_bt:
+        raise AssertionError(f"temporal probe launches "
+                             f"{(bt.launches, bt.stage_launches)} != "
+                             f"{want_bt}")
     loops = dict(quant.gemm_launches_by_loop)
     k12_loops = dict(bench_attn_variants.launches_by_loop)
     emit(phase="probes", launches=counts, gemm_launches_by_loop=loops,

@@ -194,7 +194,8 @@ def test_port_imports_no_jax():
             "vda_tpu_torch.probes.probe_stream_kernel, "
             "vda_tpu_torch.probes.bench_attn_sm90, "
             "vda_tpu_torch.probes.bench_attn_proj_sm90, "
-            "vda_tpu_torch.probes.bench_gemm_sm90; "
+            "vda_tpu_torch.probes.bench_gemm_sm90, "
+            "vda_tpu_torch.probes.bench_temporal_sm90, chip_smoke; "
             "bad = [m for m in sys.modules if m in ('jax', 'vda_tpu', "
             "'optax', 'orbax') or m.startswith(('jax.', 'vda_tpu.', "
             "'optax.', 'orbax.'))]; print(bad); "

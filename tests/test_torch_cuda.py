@@ -27,7 +27,13 @@ launches are asserted on the device loop their C entry points report
 (``attn_proj_kernel.loop_of``, ``bench_attn_variants.loop_of``): "sm90"
 for bf16 at head width 64 (K12: every variant but ``mma_sync``), "sm80"
 otherwise; K7's design steps (``probes/bench_attn_proj_sm90.py``) against
-their twins at small shapes.
+their twins at small shapes.  K3 and K4 launches are asserted on the loop
+``temporal_kernel.loop_of`` reports: "sm90" (the Hopper code: K3's fused
+kernel at C 256, 8 heads, T 32, the chain elsewhere) for bf16 at head
+widths a multiple of 16 up to 128, "sm80" otherwise; the Hopper code at the
+main-path head widths within 2e-2 of the twin and of the kernels it
+replaced, the design steps and the chain's stages
+(``probes/bench_temporal_sm90.py``) against their twins.
 """
 
 import numpy as np
@@ -211,8 +217,13 @@ def test_k3_temporal_block(gen, dtype, c, t, bd, heads):
     blk = _block(c, gen)
     pe = sinusoidal_pe(t, c)[0].cuda()  # the model's table holds 32 frames
     h = torch.randn(bd, t, c, device="cuda", generator=gen).to(dtype)
-    got = _launched("K3", lambda: temporal_kernel.temporal_block_fused(
-        blk, h, pe, heads))
+    loop = temporal_kernel.loop_of(dtype, c, heads, t, True)
+    assert loop == ("sm90" if dtype == BF and (c // heads) % 16 == 0
+                    else "sm80")
+    got = _on_loop(lambda: temporal_kernel.launches_by_loop["K3"], loop,
+                   lambda: _launched("K3", lambda: (
+                       temporal_kernel.temporal_block_fused(blk, h, pe,
+                                                            heads))))
     ref = temporal_kernel.temporal_block_reference(blk, h, pe, heads)
     assert _rel(ref, got) < TOL_TEMPORAL[dtype]
 
@@ -229,10 +240,109 @@ def test_k4_attention_block(gen, dtype, c, t, bd, heads):
     attn, norm = blk.attention_blocks[1], blk.norms[1]
     pe = sinusoidal_pe(t, c)[0].cuda()
     h = torch.randn(bd, t, c, device="cuda", generator=gen).to(dtype)
-    got = _launched("K4", lambda: temporal_kernel.attention_block_fused(
-        attn, norm, h, pe, heads))
+    loop = temporal_kernel.loop_of(dtype, c, heads, t, False)
+    dh = c // heads
+    assert loop == ("sm90" if dtype == BF and dh % 16 == 0 and dh <= 128
+                    else "sm80")
+    got = _on_loop(lambda: temporal_kernel.launches_by_loop["K4"], loop,
+                   lambda: _launched("K4", lambda: (
+                       temporal_kernel.attention_block_fused(attn, norm, h,
+                                                             pe, heads))))
     ref = temporal_kernel.attention_block_reference(attn, norm, h, pe, heads)
     assert _rel(ref, got) < TOL_TEMPORAL[dtype]
+
+
+# K3 and K4 on the Hopper code at the main-path head widths (vitl K3 32,
+# K4 128; vitb K3 16, K4 96; vits K3 48), ragged BD: within 2e-2 of the bf16
+# twin and of the kernels they replaced (the probe's "sm80" step) on the
+# same values, every launch on "sm90".  vitl's K3 (C = 256) runs the fused
+# kernel and is also held to the chain (the probe's "chain" step); BD 1 and
+# 37 leave a cluster pair's second tile past the last row.
+@pytest.mark.parametrize("bd", [1, 5, 37, 361])
+@pytest.mark.parametrize("c", [256, 128, 384])
+def test_k3_hopper_kernel(gen, c, bd):
+    from vda_tpu_torch.probes import bench_temporal_sm90 as bt
+
+    blk = _block(c, gen)
+    pe = sinusoidal_pe(32, c)[0].cuda()
+    h = torch.randn(bd, 32, c, device="cuda", generator=gen).to(BF)
+    assert temporal_kernel.loop_of(BF, c, 8, 32, True) == "sm90"
+    got = _on_loop(lambda: temporal_kernel.launches_by_loop["K3"], "sm90",
+                   lambda: _launched("K3", lambda: (
+                       temporal_kernel.temporal_block_fused(blk, h, pe, 8))))
+    assert _rel(temporal_kernel.temporal_block_reference(blk, h, pe, 8),
+                got) < TOL_TEMPORAL[BF]
+    assert _rel(temporal_kernel.temporal_block_stages(blk, h, pe, 8),
+                got) < TOL_TEMPORAL[BF]
+    assert _rel(bt.variant("sm80", blk, h, pe, True), got) < TOL_TEMPORAL[BF]
+    if c == 256:
+        assert _rel(bt.variant("chain", blk, h, pe, True), got) < \
+            TOL_TEMPORAL[BF]
+
+
+# The fused K3 launched back to back gives the same bits every time: a race
+# between its producer and its consumers (a slot read before its weights
+# land, a tile stored before its last epilogue) would show as a difference.
+# 1369 sequences leave a cluster pair's last tile past the end.
+@pytest.mark.parametrize("step", ["fused", "fused_cl1", "fused_split",
+                                  "fused_lag"])
+def test_k3_fused_kernel_repeats_bit_for_bit(gen, step):
+    from vda_tpu_torch.probes import bench_temporal_sm90 as bt
+
+    blk = _block(256, gen)
+    pe = sinusoidal_pe(32, 256)[0].cuda()
+    h = torch.randn(1369, 32, 256, device="cuda", generator=gen).to(BF)
+    first = bt.variant(step, blk, h, pe, True)
+    for _ in range(30):
+        assert torch.equal(bt.variant(step, blk, h, pe, True), first)
+    assert _rel(bt.twin(blk, h, pe, True), first) < TOL_TEMPORAL[BF]
+
+
+@pytest.mark.parametrize("bd", [1, 5, 37, 361])
+@pytest.mark.parametrize("c", [1024, 768])
+def test_k4_hopper_kernel(gen, c, bd):
+    from vda_tpu_torch.probes import bench_temporal_sm90 as bt
+
+    blk = _block(c, gen)
+    attn, norm = blk.attention_blocks[0], blk.norms[0]
+    pe = sinusoidal_pe(32, c)[0].cuda()
+    h = torch.randn(bd, 32, c, device="cuda", generator=gen).to(BF)
+    assert temporal_kernel.loop_of(BF, c, 8, 32, False) == "sm90"
+    got = _on_loop(lambda: temporal_kernel.launches_by_loop["K4"], "sm90",
+                   lambda: _launched("K4", lambda: (
+                       temporal_kernel.attention_block_fused(attn, norm, h,
+                                                             pe, 8))))
+    assert _rel(temporal_kernel.attention_block_reference(attn, norm, h, pe,
+                                                          8),
+                got) < TOL_TEMPORAL[BF]
+    assert _rel(temporal_kernel.attention_sub_stages(attn, norm, h, pe, 8),
+                got) < TOL_TEMPORAL[BF]
+    assert _rel(bt.variant("sm80", blk, h, pe, False), got) < TOL_TEMPORAL[BF]
+
+
+# The design steps (the fused ones K3's alone) and each of the chain's
+# stages alone (probes/bench_temporal_sm90.py) against their twins at small
+# shapes.
+@pytest.mark.parametrize("c,bd", [(256, 37), (1024, 5)])
+def test_temporal_design_steps_and_stages(gen, c, bd):
+    from vda_tpu_torch.probes import bench_temporal_sm90 as bt
+
+    full = c <= 512
+    blk = _block(c, gen)
+    pe = sinusoidal_pe(32, c)[0].cuda()
+    h = torch.randn(bd, 32, c, device="cuda", generator=gen).to(BF)
+    want = bt.twin(blk, h, pe, full)
+    for name in bt.VARIANTS:
+        if name in bt.K3_ONLY and not full:
+            continue
+        got = bt.variant(name, blk, h, pe, full)
+        if name in bt.PARTS:  # parts of the fused kernel write nothing
+            assert (got == 0).all(), name
+        else:
+            assert _rel(want, got) < TOL_TEMPORAL[BF], name
+    for name, (args, ref) in bt.stage_inputs(blk, h, pe, full).items():
+        assert _rel(ref, bt.stage(name, full, *args, 32)) < \
+            TOL_TEMPORAL[BF], name
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -21,6 +21,32 @@ from vda_tpu_torch.utils import profiling
      "K3 temporal_block"),
     ("void vda::(anonymous namespace)::attention_block_kernel<float>(...)",
      "K4 attention_block"),
+    # the Hopper chain of K3/K4: its products on the GEMM mainloop, its
+    # attention and LN passes, each tagged with its kernel
+    ("void vda::gemm90::gemm_sm90_kernel<vda::gemm90::Config<128, 256, 4, "
+     "true, 2, (vda::gemm90::Mode)0, 2>, vda::gemm90::BF16, "
+     "vda::gemm::QkvStore<vda::gemm::TemporalK4> >(CUtensorMap_st, ...)",
+     "K4 attention_block"),
+    ("void vda::gemm90::gemm_sm90_kernel<vda::gemm90::Config<128, 256, 4, "
+     "true, 2, (vda::gemm90::Mode)0, 2>, vda::gemm90::BF16, "
+     "vda::gemm::Residual<vda::gemm::TemporalK4> >(CUtensorMap_st, ...)",
+     "K4 attention_block"),
+    ("void vda::gemm90::gemm_sm90_kernel<vda::gemm90::Config<128, 256, 4, "
+     "true, 2, (vda::gemm90::Mode)0, 2>, vda::gemm90::BF16, "
+     "vda::gemm::Geglu<vda::gemm::TemporalK3> >(CUtensorMap_st, ...)",
+     "K3 temporal_block"),
+    # K3's fused Hopper kernel
+    ("void vda::temporal_fused::temporal_fused_kernel<vda::temporal_fused::"
+     "Config<3, 2> >(vda::temporal_fused::Maps, vda::temporal_fused::Params)",
+     "K3 temporal_block"),
+    ("void vda::temporal::seq_attention_kernel<vda::gemm::TemporalK3, 32>"
+     "(const __nv_bfloat16 *, ...)", "K3 temporal_block"),
+    ("void vda::temporal::seq_attention_kernel<vda::gemm::TemporalK4, 128>"
+     "(const __nv_bfloat16 *, ...)", "K4 attention_block"),
+    ("void vda::temporal::ln_ape_kernel<vda::gemm::TemporalK3, 1>(...)",
+     "K3 temporal_block"),
+    ("void vda::temporal::ln_ape_kernel<vda::gemm::TemporalK4, 4>(...)",
+     "K4 attention_block"),
     ("void vda::(anonymous namespace)::tiny_seq_kernel<__nv_bfloat16, 32>"
      "(...)", "K5 tiny_seq"),
     ("void vda::(anonymous namespace)::stream_kv_kernel<float>(...)",

@@ -65,6 +65,12 @@
 // tensor rate that clock gives; the epilogue adds 13-15% in bf16 (PERF.md,
 // PR 7).
 //
+// A paired epilogue (paired_epi below; K3's GEGLU, gemm_epilogue.cuh)
+// takes a tile of B^T made of two halves: BN / 2 rows from the first half of
+// B^T's N rows and the same BN / 2 rows of its second half (x1 and the gate
+// of one chunk of hidden columns), so one thread holds both sums of an
+// output column.  The output is (M, N / 2).
+//
 // The library's default (int8_matmul.cu) and the measured alternatives
 // (gemm_sm90_variants.cu, probes/bench_gemm_sm90.py) are configurations of
 // this one kernel.  Nothing between the first and the last wgmma of a batch
@@ -296,6 +302,47 @@ constexpr CUtensorMapDataType out_map_type() {
     return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
+// An epilogue whose `paired` is true combines the two halves of the B^T
+// tile (header); its pair() takes the two sums of each half.
+template <class E, class = void>
+struct paired_epi : std::false_type {};
+template <class E>
+struct paired_epi<E, std::void_t<decltype(E::paired)>>
+    : std::bool_constant<E::paired> {};
+
+// An epilogue with prefetch(row, col) reads another (M, N / PW) operand
+// (the residual): each consumer thread asks L2 for its share of the
+// tile's lines of it when the tile starts, so that the reads of the
+// epilogue, a mainloop later, do not wait on device memory.
+template <class E, class = void>
+struct prefetch_epi : std::false_type {};
+template <class E>
+struct prefetch_epi<E, std::void_t<decltype(&E::prefetch)>>
+    : std::true_type {};
+
+// Row of B^T that half `hf` (0 or 1) of the tile at column n0 starts at.
+template <class Epi, int BN>
+__device__ __forceinline__ int b_row(int n0, int hf, int n) {
+  if constexpr (paired_epi<Epi>::value)
+    return hf * (n / 2) + n0 / 2;
+  else
+    return n0 + hf * (BN / 2);
+}
+
+// The output pair of rows-half h of the 8-column group j of one m64
+// slice's sums a, at (row, col): sums 4j + 2h and 4j + 2h + 1 (paired: and
+// those of group j + OBN / 8, the same column of the second half).
+template <bool PAIRED, int OBN, class Epi, typename Acc, int N>
+__device__ __forceinline__ auto pair_value(const Epi& epi, const Acc (&a)[N],
+                                           int j, int h, int row, int col) {
+  if constexpr (PAIRED)
+    return epi.pair(row, col, a[4 * j + 2 * h], a[4 * j + 2 * h + 1],
+                    a[4 * (j + OBN / 8) + 2 * h],
+                    a[4 * (j + OBN / 8) + 2 * h + 1]);
+  else
+    return epi.pair(row, col, a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
+}
+
 __device__ __forceinline__ void consumer_sync(int c) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
 }
@@ -323,6 +370,9 @@ __global__ void __launch_bounds__(C::threads, 1)
   // row-adjacent tiles of one column tile (CL 2, one tile a block of the
   // cluster), units first, first + stride, ...
   constexpr int CL = C::cluster;
+  // PW: output columns are N / PW, OBN a tile's (header: paired)
+  constexpr bool PAIRED = paired_epi<Epi>::value;
+  constexpr int PW = PAIRED ? 2 : 1, OBN = BN / PW;
   const uint32_t rank = CL == 2 ? cluster_ctarank() : 0;
   const int tiles_n = (n + BN - 1) / BN;
   const int units = ((m + BM * CL - 1) / (BM * CL)) * tiles_n;
@@ -372,8 +422,12 @@ __global__ void __launch_bounds__(C::threads, 1)
           tma_load_2d(st, &ta, k0, m0, full(s));
           if constexpr (CL == 2)  // this block's half of B^T, to both
             tma_load_2d_multicast(st + C::a_bytes + rank * (BN / 2) * KB,
-                                  &tb, k0, n0 + rank * (BN / 2), full(s),
-                                  0x3);
+                                  &tb, k0, b_row<Epi, BN>(n0, rank, n),
+                                  full(s), 0x3);
+          else if constexpr (PAIRED)  // both halves, one box each
+            for (int hf = 0; hf < 2; ++hf)
+              tma_load_2d(st + C::a_bytes + hf * (BN / 2) * KB, &tb, k0,
+                          b_row<Epi, BN>(n0, hf, n), full(s));
           else
             tma_load_2d(st + C::a_bytes, &tb, k0, n0, full(s));
           next();
@@ -459,6 +513,20 @@ __global__ void __launch_bounds__(C::threads, 1)
   for (int u = first; u < units; u += stride) {
     int m0, n0;
     origin(u, m0, n0);
+    if constexpr (prefetch_epi<Epi>::value) {
+      // the thread's 2 MI rows, one 128-byte line in four of each
+      constexpr int LINES = OBN * static_cast<int>(sizeof(Out)) / 128;
+      constexpr int PER_LINE = 128 / static_cast<int>(sizeof(Out));
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + c * C::wm + i * 64 + warp * 16 + g + 8 * h;
+          for (int l = t; l < LINES; l += 4)
+            if (row < m && n0 / PW + l * PER_LINE < n / PW)
+              epi.prefetch(row, n0 / PW + l * PER_LINE);
+        }
+    }
     if constexpr (C::mode == Mode::kLoads) {
       for (int kt = 0; kt < nk; ++kt) {
         mbar_wait(full(s), ph);
@@ -503,23 +571,25 @@ __global__ void __launch_bounds__(C::threads, 1)
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int col = n0 + 8 * j + 2 * t;
-          if (col >= n) continue;
+        for (int j = 0; j < OBN / 8; ++j) {
+          const int col = n0 / PW + 8 * j + 2 * t;
+          if (col >= n / PW) continue;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = r0 + i * 64 + warp * 16 + g + 8 * h;
             if (row < m)
-              gemm::store_pair(epi, row, col, acc[i][4 * j + 2 * h],
-                               acc[i][4 * j + 2 * h + 1]);
+              gemm::store_value(
+                  epi, row, col,
+                  pair_value<PAIRED, OBN>(epi, acc[i], j, h, row, col));
           }
         }
     } else {
       // the consumer's 64-row slices (MI) x its columns in boxes of 128
       // bytes (COLS columns), in groups of NB boxes of staging
       constexpr int COLS = 128 / sizeof(Out), NB = C::store_boxes;
-      constexpr int BOXES = MI * (BN / COLS);
-      using Pair = decltype(epi.pair(0, 0, Acc(), Acc()));
+      constexpr int BOXES = MI * (OBN / COLS);
+      using Pair =
+          decltype(pair_value<PAIRED, OBN>(epi, acc[0], 0, 0, 0, 0));
 #pragma unroll
       for (int g0 = 0; g0 < BOXES; g0 += NB) {
         // the previous group's stores have read the staging
@@ -530,18 +600,18 @@ __global__ void __launch_bounds__(C::threads, 1)
         Pair v[NB][COLS / 8][2];
 #pragma unroll
         for (int bx = g0; bx < g0 + NB && bx < BOXES; ++bx) {
-          const int i = bx / (BN / COLS), cb = bx % (BN / COLS);
+          const int i = bx / (OBN / COLS), cb = bx % (OBN / COLS);
 #pragma unroll
           for (int jj = 0; jj < COLS / 8; ++jj) {
             const int j = cb * (COLS / 8) + jj;
-            const int col = n0 + 8 * j + 2 * t;
+            const int col = n0 / PW + 8 * j + 2 * t;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int row = r0 + i * 64 + warp * 16 + g + 8 * h;
               v[bx - g0][jj][h] = Pair{};
-              if (C::mode != Mode::kStoreOnly && row < m && col < n)
-                v[bx - g0][jj][h] = epi.pair(row, col, acc[i][4 * j + 2 * h],
-                                             acc[i][4 * j + 2 * h + 1]);
+              if (C::mode != Mode::kStoreOnly && row < m && col < n / PW)
+                v[bx - g0][jj][h] =
+                    pair_value<PAIRED, OBN>(epi, acc[i], j, h, row, col);
             }
           }
         }
@@ -575,9 +645,10 @@ __global__ void __launch_bounds__(C::threads, 1)
         if (tid == 0 && C::mode != Mode::kStage) {
 #pragma unroll
           for (int bx = g0; bx < g0 + NB && bx < BOXES; ++bx) {
-            const int col0 = n0 + bx % (BN / COLS) * COLS;
-            const int row0 = r0 + bx / (BN / COLS) * 64;
-            if (col0 < n && row0 < m)  // a box wholly outside is not stored
+            const int col0 = n0 / PW + bx % (OBN / COLS) * COLS;
+            const int row0 = r0 + bx / (OBN / COLS) * 64;
+            // a box wholly outside is not stored
+            if (col0 < n / PW && row0 < m)
               tma_store_2d(
                   &tc, base + C::out_off + (c * NB + bx - g0) * C::box_bytes,
                   col0, row0);
@@ -630,17 +701,21 @@ template <class C, class T, class Epi>
 cudaError_t launch(const void* a, const void* bt, int m, int n, int kb,
                    Epi epi, cudaStream_t stream) {
   using Out = typename Epi::Out;
+  constexpr bool PAIRED = paired_epi<Epi>::value;
+  constexpr int PW = PAIRED ? 2 : 1;
+  // paired: each half of a tile lies within its half of B^T
+  if (PAIRED && (n / 2) % (C::bn / 2)) return cudaErrorInvalidValue;
   constexpr int box_k = KB / T::elem;
   CUtensorMap ma, mb, mc{};
   cudaError_t e = make_map_2d(&ma, a, T::map_type, kb / T::elem, m, kb,
                               box_k, C::bm);
   if (e == cudaSuccess)
     e = make_map_2d(&mb, bt, T::map_type, kb / T::elem, n, kb, box_k,
-                    C::bn / C::cluster);
+                    C::bn / (C::cluster == 2 || PAIRED ? 2 : 1));
   constexpr int out_elem = static_cast<int>(sizeof(Out));
   if (e == cudaSuccess && C::tma_store)
-    e = make_map_2d(&mc, epi.out, out_map_type<Out>(), n, m,
-                    static_cast<size_t>(n) * out_elem, 128 / out_elem,
+    e = make_map_2d(&mc, epi.out, out_map_type<Out>(), n / PW, m,
+                    static_cast<size_t>(n / PW) * out_elem, 128 / out_elem,
                     BOX_ROWS);
   if (e != cudaSuccess) return e;
   auto kern = gemm_sm90_kernel<C, T, Epi>;

@@ -27,11 +27,20 @@
 // order, to a device-memory workspace with one slice a block; the caller asks
 // vda_temporal_workspace for its size.  `plan` is the only description of
 // the layout: the launch refuses what it cannot place.
+//
+// The entry points run these kernels for fp32 and for the bf16 shapes that
+// the Hopper code does not take; vda_temporal_loop says which (90: the
+// Hopper code, 80: the kernels here).  On the Hopper side, K3 at vitl's
+// width (C = 256, 8 heads, T = 32) runs the fused kernel of
+// temporal_fused_sm90.cuh (vda::TF90), every other shape the chain of
+// temporal_sm90.cuh (vda::TB90 its products' configuration).  None stands
+// in for another: a shape runs the code its loop names or the launch fails.
 
 #include <cuda_pipeline.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "temporal_fused_sm90.cuh"
 
 namespace vda {
 namespace {
@@ -552,66 +561,141 @@ cudaError_t run(Params p, bool full, int is_bf16, unsigned long long ws_bytes,
 }
 
 }  // namespace
+
+cudaError_t temporal_sm80(const temporal::Args& a, bool full, int is_bf16,
+                          cudaStream_t st) {
+  Params p{};
+  p.h = a.h;
+  p.out = a.out;
+  p.pe = a.pe;
+  const size_t cc = static_cast<size_t>(a.c) * a.c * (is_bf16 ? 2 : 4);
+  for (int i = 0; i < (full ? 2 : 1); ++i) {
+    const auto& w = a.attn[i];
+    const auto* q = static_cast<const unsigned char*>(w.wqkv);
+    p.attn[i] = {w.ln_w, w.ln_b, q, q + cc, q + 2 * cc, w.wout, w.bout};
+  }
+  p.ffn_w = a.ffn_w;
+  p.ffn_b = a.ffn_b;
+  p.wproj = a.wproj;
+  p.bproj = a.bproj;
+  p.wffo = a.wffo;
+  p.bffo = a.bffo;
+  p.ws = static_cast<unsigned char*>(a.ws);
+  p.bd = a.bd;
+  p.seq = a.seq;
+  p.c = a.c;
+  p.heads = a.heads;
+  return run(p, full, is_bf16, a.ws_bytes, st);
+}
+
+bool temporal_sm80_workspace(int bd, int seq, int c, int heads, int is_bf16,
+                             bool full, unsigned long long* bytes) {
+  Plan pl;
+  if (!plan(bd, seq, c, heads, is_bf16 ? 2 : 4, full, &pl)) return false;
+  *bytes = workspace_bytes(pl, bd);
+  return true;
+}
+
 }  // namespace vda
 
+// 90 where the entry points below run the Hopper chain (temporal_sm90.cuh:
+// bf16, head widths a multiple of 16 up to 128, T <= 64; full = 1 for K3,
+// which the JAX gate holds to C <= 512, 0 for K4, C <= 1024), else 80: the
+// kernels of this file.
+extern "C" int vda_temporal_loop(int c, int heads, int t, int is_bf16,
+                                 int full) {
+  return is_bf16 && heads > 0 && c % heads == 0 && (c / heads) % 16 == 0 &&
+                 c / heads <= 128 && t >= 1 && t <= 64 && c % 128 == 0 &&
+                 c <= 1024 >> full
+             ? 90
+             : 80;
+}
+
 // Bytes of device-memory workspace a launch of this shape needs (0 when
-// every buffer fits shared memory); cudaErrorInvalidValue if it is not
-// taken.  full: 1 for K3, 0 for K4.
+// every buffer of the kernels here fits shared memory); cudaErrorInvalidValue
+// if it is not taken.  full: 1 for K3, 0 for K4.
 extern "C" int vda_temporal_workspace(int bd, int seq, int c, int heads,
                                       int is_bf16, int full,
                                       unsigned long long* bytes) {
-  vda::Plan pl;
-  if (!vda::plan(bd, seq, c, heads, is_bf16 ? 2 : 4, full != 0, &pl))
-    return cudaErrorInvalidValue;
-  *bytes = vda::workspace_bytes(pl, bd);
-  return cudaSuccess;
+  if (bd < 1) return cudaErrorInvalidValue;
+  if (vda_temporal_loop(c, heads, seq, is_bf16, full) == 90) {
+    // the fused K3 keeps its intermediates in shared memory
+    *bytes = full && vda::temporal_fused::takes(c, heads, seq)
+                 ? 0
+                 : vda::temporal::workspace_bytes(bd, seq, c, full != 0);
+    return cudaSuccess;
+  }
+  return vda::temporal_sm80_workspace(bd, seq, c, heads, is_bf16, full != 0,
+                                      bytes)
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 
+namespace {
+
+cudaError_t run_block(const vda::temporal::Args& a, bool full, int is_bf16,
+                      void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (vda_temporal_loop(a.c, a.heads, a.seq, is_bf16, full) == 90) {
+    if (full && vda::temporal_fused::takes(a.c, a.heads, a.seq))
+      return vda::temporal_fused::launch<vda::TF90>(a, st);
+    return full ? vda::temporal::temporal_block<vda::TB90>(a, st)
+                : vda::temporal::attention_block<vda::TB90>(a, st);
+  }
+  return vda::temporal_sm80(a, full, is_bf16, st);
+}
+
+}  // namespace
+
+// K4.  h, out (BD, T, C) and the weights in the working dtype, wqkv (3C, C)
+// the rows of to_q, to_k and to_v; pe (T, C), the norm's and bout fp32.
 extern "C" int vda_attention_block(
     const void* h, void* out, const float* pe, const float* ln_w,
-    const float* ln_b, const void* wq, const void* wk, const void* wv,
-    const void* wout, const float* bout, void* ws,
-    unsigned long long ws_bytes, int bd, int seq, int c, int heads,
+    const float* ln_b, const void* wqkv, const void* wout, const float* bout,
+    void* ws, unsigned long long ws_bytes, int bd, int seq, int c, int heads,
     int is_bf16, void* stream) {
-  vda::Params p{};
-  p.h = h;
-  p.out = out;
-  p.pe = pe;
-  p.attn[0] = {ln_w, ln_b, wq, wk, wv, wout, bout};
-  p.ws = static_cast<unsigned char*>(ws);
-  p.bd = bd;
-  p.seq = seq;
-  p.c = c;
-  p.heads = heads;
-  return vda::run(p, false, is_bf16, ws_bytes, stream);
+  vda::temporal::Args a{};
+  a.h = h;
+  a.out = out;
+  a.pe = pe;
+  a.attn[0] = {ln_w, ln_b, wqkv, wout, bout};
+  a.ws = ws;
+  a.ws_bytes = ws_bytes;
+  a.bd = bd;
+  a.seq = seq;
+  a.c = c;
+  a.heads = heads;
+  return run_block(a, false, is_bf16, stream);
 }
 
+// K3.  As K4, for both attention sub-blocks, then the feed-forward: wproj
+// (8C, C) (x1's rows, then the gate's), wffo (C, 4C), their biases fp32.
 extern "C" int vda_temporal_block(
     const void* h, void* out, const float* pe, const float* ln0_w,
-    const float* ln0_b, const void* wq0, const void* wk0, const void* wv0,
-    const void* wout0, const float* bout0, const float* ln1_w,
-    const float* ln1_b, const void* wq1, const void* wk1, const void* wv1,
-    const void* wout1, const float* bout1, const float* ffn_w,
-    const float* ffn_b, const void* wproj, const float* bproj,
-    const void* wffo, const float* bffo, void* ws,
+    const float* ln0_b, const void* wqkv0, const void* wout0,
+    const float* bout0, const float* ln1_w, const float* ln1_b,
+    const void* wqkv1, const void* wout1, const float* bout1,
+    const float* ffn_w, const float* ffn_b, const void* wproj,
+    const float* bproj, const void* wffo, const float* bffo, void* ws,
     unsigned long long ws_bytes, int bd, int seq, int c, int heads,
     int is_bf16, void* stream) {
-  vda::Params p{};
-  p.h = h;
-  p.out = out;
-  p.pe = pe;
-  p.attn[0] = {ln0_w, ln0_b, wq0, wk0, wv0, wout0, bout0};
-  p.attn[1] = {ln1_w, ln1_b, wq1, wk1, wv1, wout1, bout1};
-  p.ffn_w = ffn_w;
-  p.ffn_b = ffn_b;
-  p.wproj = wproj;
-  p.bproj = bproj;
-  p.wffo = wffo;
-  p.bffo = bffo;
-  p.ws = static_cast<unsigned char*>(ws);
-  p.bd = bd;
-  p.seq = seq;
-  p.c = c;
-  p.heads = heads;
-  return vda::run(p, true, is_bf16, ws_bytes, stream);
+  vda::temporal::Args a{};
+  a.h = h;
+  a.out = out;
+  a.pe = pe;
+  a.attn[0] = {ln0_w, ln0_b, wqkv0, wout0, bout0};
+  a.attn[1] = {ln1_w, ln1_b, wqkv1, wout1, bout1};
+  a.ffn_w = ffn_w;
+  a.ffn_b = ffn_b;
+  a.wproj = wproj;
+  a.bproj = bproj;
+  a.wffo = wffo;
+  a.bffo = bffo;
+  a.ws = ws;
+  a.ws_bytes = ws_bytes;
+  a.bd = bd;
+  a.seq = seq;
+  a.c = c;
+  a.heads = heads;
+  return run_block(a, true, is_bf16, stream);
 }

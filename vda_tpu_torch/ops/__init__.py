@@ -51,6 +51,9 @@ def reset_launch_counts() -> None:
     segment_kernel.launches = 0
     temporal_kernel.launches_block = 0
     temporal_kernel.launches_attn = 0
+    temporal_kernel.launches_by_loop = {
+        k: dict.fromkeys(v, 0)
+        for k, v in temporal_kernel.launches_by_loop.items()}
     tiny_seq_kernel.launches = 0
     stream_kernel.launches = 0
     for probe in _probes():

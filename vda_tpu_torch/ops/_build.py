@@ -54,15 +54,23 @@ _SIGNATURES = {
     # x, out, itab, ftab, B, OH, OW, C, block_rows, stride_b, stride_h,
     # stride_w, stream
     "vda_resize_bilinear": [_P] * 4 + [_I] * 5 + [_I64] * 3 + [_P],
+    # C, heads, T, is_bf16, full -> 90 (the Hopper chain) or 80
+    "vda_temporal_loop": [_I] * 5,
     # BD, T, C, heads, is_bf16, full, *workspace_bytes (out)
     "vda_temporal_workspace": [_I] * 6 + [ctypes.POINTER(_U64)],
-    # h, out, pe, ln_w, ln_b, wq, wk, wv, wout, bout, ws, ws_bytes, BD, T,
-    # C, heads, is_bf16, stream
-    "vda_attention_block": [_P] * 11 + [_U64] + [_I] * 5 + [_P],
-    # h, out, pe, (ln_w, ln_b, wq, wk, wv, wout, bout) x2, ffn_w, ffn_b,
-    # wproj, bproj, wffo, bffo, ws, ws_bytes, BD, T, C, heads, is_bf16,
-    # stream
-    "vda_temporal_block": [_P] * 24 + [_U64] + [_I] * 5 + [_P],
+    # h, out, pe, ln_w, ln_b, wqkv, wout, bout, ws, ws_bytes, BD, T, C,
+    # heads, is_bf16, stream
+    "vda_attention_block": [_P] * 9 + [_U64] + [_I] * 5 + [_P],
+    # h, out, pe, (ln_w, ln_b, wqkv, wout, bout) x2, ffn_w, ffn_b, wproj,
+    # bproj, wffo, bffo, ws, ws_bytes, BD, T, C, heads, is_bf16, stream
+    "vda_temporal_block": [_P] * 20 + [_U64] + [_I] * 5 + [_P],
+    # stage, full, a, w, b, h, pe, out, M, N, K, T, heads, stream
+    "vda_temporal_stage": [_I] * 2 + [_P] * 6 + [_I] * 5 + [_P],
+    # BD, T, C, heads, full, variant, *workspace_bytes (out)
+    "vda_temporal_variant_workspace": [_I] * 6 + [ctypes.POINTER(_U64)],
+    # the operands of vda_temporal_block, ws, ws_bytes, BD, T, C, heads,
+    # full, variant, stream
+    "vda_temporal_variant": [_P] * 20 + [_U64] + [_I] * 6 + [_P],
     # q, k, v, out, BD, T, C, heads, seq_stride, row_stride, scale, is_bf16,
     # stream
     "vda_tiny_seq_attention": [_P] * 4 + [_I] * 4 + [_I64] * 2

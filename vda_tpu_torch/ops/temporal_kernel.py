@@ -4,46 +4,76 @@ K3 replaces ``vda_tpu/ops/pallas_temporal.py`` ``temporal_block_fused`` (its
 ``pl.pallas_call`` runs ``_block_kernel``): a whole TemporalTransformerBlock
 on (BD, T, C) sequences, vitl mm2/mm3 at (1369, 32, 256) and (5476, 32, 256).
 K4 replaces ``attention_block_fused`` (``_attn_only_kernel``): one attention
-sub-block, vitl mm0/mm1 at C=1024, whose GEGLU feed-forward stays outside.
+sub-block, vitl mm0/mm1 at (1369, 32, 1024) and (361, 32, 1024), whose GEGLU
+feed-forward stays outside.
 
-What bounds them on the H100: device-memory traffic of the intermediates.
-Unfused, one C=256 block writes and re-reads nine row-sized tensors (qkv is
-3C wide, the GEGLU input 8C wide) for about 1.3 MFLOP a row.  The kernels
-(``csrc/temporal_block.cu``) keep all of them in shared memory: one thread
-block owns whole T-frame sequences, reads its rows once and writes them once.
-The TPU kernel held every weight in VMEM; here the 2.6 MB (C=256) or 8 MB
-(C=1024) of weights stay in device memory (L2-resident: 50 MB L2), each block
-streams them through shared memory 64 columns at a time with cp.async into
-WMMA bf16 products, and the row tile is as tall as shared memory allows, so
-each weight byte read serves as many rows as possible.  Attention runs per
-sequence, (T x T) per head, instead of the TPU's block-diagonal masked
-(rows x rows) score pass, which only suited the 128x128 MXU.  The GEGLU
-input is formed 64 hidden columns at a time and never leaves the block.
-Where one sequence's buffers do not fit shared memory (fp32 at C=1024, T
-above 32 at C=1024) the largest move to a device-memory workspace; the C
-side alone plans that layout (``plan`` in the .cu file), and this wrapper
-asks it for the workspace size.  The weights are cast to the working dtype
-once per parameter and reused (``layers.cast_once``).
+What bounds them on the H100: the products (vitl mm0's K4 0.37 ms, mm3's K3
+0.47 ms at the bf16 peak) against a few hundred MB of rows in and out.  The
+C entry points pick the device code by (C, heads, T, dtype) alone
+(``loop_of``, the C query ``vda_temporal_loop``):
+
+* bf16 at head widths that are multiples of 16 up to 128 and T <= 64 (vitl
+  mm0-mm3, vitb and vits: every main-path shape): Hopper code.  K3 at
+  vitl's width (C 256, 8 heads, T 32: mm2 and mm3) runs one fused kernel,
+  ``csrc/temporal_fused_sm90.cuh``: 64-row tiles whose residual, LN output
+  and head outputs stay in shared memory, the weights streamed by TMA
+  through a ring that two wgmma consumer warpgroups read, cluster pairs
+  sharing each weight box by multicast.  Every other such shape runs the
+  Hopper chain of ``csrc/temporal_sm90.cuh``; one entry point call launches
+  its stages: a
+  LayerNorm (+ APE) row pass, the qkv product on the Hopper GEMM mainloop of
+  K11/K13 (``csrc/gemm_sm90.cuh``: TMA, wgmma, cluster pairs sharing each
+  weight tile), a per-sequence attention on the tensor cores (``mma.sync``),
+  the out-projection on the same mainloop with a bias + residual epilogue;
+  K3 twice, then the LN pass, the GEGLU product (x1 and gate of a chunk in
+  one tile, combined in the epilogue) and the feed-forward product with the
+  residual epilogue.  The intermediates live in a device-memory workspace
+  (``vda_temporal_workspace`` gives its size).  Its design steps:
+  ``probes/bench_temporal_sm90.py``.
+* fp32 and every other shape the JAX gates admit: the kernels of
+  ``csrc/temporal_block.cu``.  One thread block owns whole T-frame
+  sequences and keeps every intermediate in shared memory (a device-memory
+  workspace where even one sequence does not fit: fp32 at C=1024, T above
+  32 at C=1024); each block streams the weights from L2 through shared
+  memory 64 columns at a time with cp.async into WMMA bf16 products (scalar
+  FMAs in fp32).
+
+The two never stand in for each other: a CUDA tensor runs the code its loop
+names or the wrapper raises.  Launches are counted (``launches_block``,
+``launches_attn``: one a call) and counted by device code
+(``launches_by_loop``: "sm90" the Hopper chain, "sm80" the other, one dict
+for K3 and one for K4).  The weights are cast to the working dtype once per
+parameter and reused (``layers.cast_once``); q, k and v's weights are
+concatenated once per module into the (3C, C) operand of the qkv product.
 
 Rounding follows the TPU kernel (``pallas_temporal.py`` module docstring):
 LayerNorm stats fp32 (eps 1e-5), the APE added after the norm in the working
 dtype, matmuls accumulated in fp32 and rounded to the working dtype, the
 softmax exp rounded to bf16 with an fp32 sum and the normalisation deferred
-to the output, tanh GELU in bf16 and erf GELU in fp32.
+to the output, tanh GELU in bf16 and erf GELU in fp32.  The stage twins
+below (``ln_ape_reference`` .. ``geglu_reference``) compute each stage of
+the Hopper chain with exactly those rounding points.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 
 import torch
 
 from vda_tpu_torch.ops import _build
 from vda_tpu_torch.ops.attention import attention_plain
 from vda_tpu_torch.ops.layers import cast_once, gelu, layer_norm, linear
+from vda_tpu_torch.ops.norm_kernel import layer_norm_reference
 
 launches_block = 0  # K3 launches made by ``temporal_block_fused``
 launches_attn = 0   # K4 launches made by ``attention_block_fused``
+# the same launches by device code: "sm90" the Hopper code (the fused K3 or
+# the chain), "sm80" the kernels of temporal_block.cu
+launches_by_loop = {"K3": {"sm90": 0, "sm80": 0},
+                    "K4": {"sm90": 0, "sm80": 0}}
 
 _MAX_FUSED_WIDTH = 512     # K3 takes C up to this (the JAX gate)
 
@@ -61,6 +91,16 @@ def attn_fused_supported(c: int, t: int, pe: str, heads: int) -> bool:
     every shape it admits, in bf16 and fp32."""
     return (pe == "ape" and _MAX_FUSED_WIDTH < c <= 1024 and t <= 64
             and c % 128 == 0 and c % heads == 0 and (c // heads) % 8 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def loop_of(dtype, c: int, heads: int, t: int, full: bool) -> str:
+    """The device code the C entry point runs for this shape (``full``: K3,
+    else K4), as it reports it (``vda_temporal_loop``): "sm90" (the Hopper
+    code: the fused K3 or the chain) or "sm80"."""
+    code = _build.library().vda_temporal_loop(
+        c, heads, t, int(dtype == torch.bfloat16), int(full))
+    return "sm90" if code == 90 else "sm80"
 
 
 # ---------------------------------------------------------------------------
@@ -103,8 +143,100 @@ def temporal_block_reference(block, h, pe_table, heads: int,
 
 
 # ---------------------------------------------------------------------------
+# plain twins of the Hopper chain's stages, with the TPU kernel's rounding
+# points (pallas_temporal.py ``_ln``, ``_attention``, ``_block_kernel``);
+# rows are the last-but-one axis, (BD, T, C) or (M, C)
+# ---------------------------------------------------------------------------
+
+def ln_ape_reference(x, w, b, pe=None):
+    """LN(x) (eps 1e-5, fp32 statistics) rounded to x's dtype, plus pe (T,
+    C) rounded to x's dtype (row t of each (T, C) sequence), the sum rounded
+    to x's dtype."""
+    y = layer_norm_reference(x, w, b, 1e-5)
+    return y if pe is None else y + pe[:x.shape[-2]].to(x.dtype)
+
+
+def qkv_reference(a, w):
+    """a @ w^T with fp32 sums, rounded to a's dtype."""
+    return torch.matmul(a.float(), w.float().t()).to(a.dtype)
+
+
+def seq_attention_reference(qkv, heads: int):
+    """Attention within each (T, 3C) sequence of qkv = [q | k | v]: fp32
+    scores times dh^-0.5, e = exp(s - max) with the difference and e in
+    qkv's dtype, the row sum of e in fp32, (e @ v) / sum in fp32, rounded
+    to qkv's dtype.  Returns (BD, T, C)."""
+    bd, t, c3 = qkv.shape
+    c = c3 // 3
+    dh = c // heads
+    q, k, v = (x.reshape(bd, t, heads, dh).float()
+               for x in qkv.split(c, dim=-1))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * dh ** -0.5
+    e = (s - s.amax(-1, keepdim=True)).to(qkv.dtype).float().exp()
+    e = e.to(qkv.dtype).float()
+    o = torch.einsum("bhqk,bkhd->bqhd", e, v) / e.sum(-1).transpose(
+        1, 2)[..., None]
+    return o.to(qkv.dtype).reshape(bd, t, c)
+
+
+def residual_reference(a, w, b, h):
+    """h + (a @ w^T + b) with fp32 sums, rounded to h's dtype, the sum in
+    h's dtype."""
+    return h + (torch.matmul(a.float(), w.float().t())
+                + b.float()).to(h.dtype)
+
+
+def geglu_reference(a, w, b):
+    """x1 * gelu(gate) with [x1 | gate] = a @ w^T + b (fp32 sums, rounded
+    to a's dtype) and gelu in a's dtype (tanh in bf16)."""
+    x12 = (torch.matmul(a.float(), w.float().t()) + b.float()).to(a.dtype)
+    x1, gate = x12.chunk(2, dim=-1)
+    return x1 * gelu(gate)
+
+
+def attention_sub_stages(attn, norm, h, pe_table, heads: int):
+    """One attention sub-block as the Hopper chain computes it, from the
+    stage twins: h + out-proj(attention(LN(h) + pe)), the weights in h's
+    dtype."""
+    hn = ln_ape_reference(h, norm.weight, norm.bias, pe_table)
+    qkv = qkv_reference(hn, _wqkv(attn, h.dtype))
+    o = seq_attention_reference(qkv, heads)
+    out = attn.to_out[0]
+    return residual_reference(o, out.weight.to(h.dtype), out.bias, h)
+
+
+def temporal_block_stages(block, h, pe_table, heads: int):
+    """K3's block as the Hopper chain computes it, from the stage twins."""
+    for attn, norm in zip(block.attention_blocks, block.norms):
+        h = attention_sub_stages(attn, norm, h, pe_table, heads)
+    hn = ln_ape_reference(h, block.ff_norm.weight, block.ff_norm.bias)
+    proj, ffo = block.ff.net[0].proj, block.ff.net[2]
+    g = geglu_reference(hn, proj.weight.to(h.dtype), proj.bias)
+    return residual_reference(g, ffo.weight.to(h.dtype), ffo.bias, h)
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
+
+_wqkv_cache = weakref.WeakKeyDictionary()
+
+
+def wqkv_once(attn, dtype):
+    """to_q, to_k and to_v's weights as one contiguous (3C, C) ``dtype``
+    tensor, made once per module and reused until one of them changes;
+    made anew where autograd records and a weight requires grad (as
+    ``cast_once``)."""
+    ws = (attn.to_q.weight, attn.to_k.weight, attn.to_v.weight)
+    if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
+        return _wqkv(attn, dtype).contiguous()
+    state = (dtype, ws[0].device,
+             *((w.data_ptr(), w._version) for w in ws))
+    hit = _wqkv_cache.get(attn)
+    if hit is None or hit[0] != state:
+        hit = _wqkv_cache[attn] = (state, _wqkv(attn, dtype).contiguous())
+    return hit[1]
+
 
 def _check(name, h, pe_table):
     t, c = h.shape[1:]
@@ -150,9 +282,8 @@ def _ptrs(name, h, tensors):
 
 def _attn_tensors(attn, norm, dtype):
     f32 = torch.float32
-    mats = (attn.to_q, attn.to_k, attn.to_v, attn.to_out[0])
     return [cast_once(norm.weight, f32), cast_once(norm.bias, f32),
-            *(cast_once(m.weight, dtype) for m in mats),
+            wqkv_once(attn, dtype), cast_once(attn.to_out[0].weight, dtype),
             cast_once(attn.to_out[0].bias, f32)]
 
 
@@ -176,6 +307,7 @@ def attention_block_fused(attn, norm, h, pe_table, heads: int):
         int(h.dtype == torch.bfloat16), _build.stream_ptr(h))
     _build.check(err, "vda_attention_block")
     launches_attn += 1
+    launches_by_loop["K4"][loop_of(h.dtype, c, heads, t, False)] += 1
     return out
 
 
@@ -208,4 +340,5 @@ def temporal_block_fused(block, h, pe_table, heads: int):
         int(h.dtype == torch.bfloat16), _build.stream_ptr(h))
     _build.check(err, "vda_temporal_block")
     launches_block += 1
+    launches_by_loop["K3"][loop_of(h.dtype, c, heads, t, True)] += 1
     return out

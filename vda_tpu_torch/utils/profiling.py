@@ -51,14 +51,19 @@ import torch
 
 # kind -> substrings of the kernel name; the first kind that matches wins
 KINDS = (
+    # K3/K4: the kernels of temporal_block.cu, K3's fused Hopper kernel and
+    # the Hopper chain's stages, whose types carry the kernel's tag (its
+    # products are GEMM kernels: they must not count as cuBLAS's, nor its
+    # attention as K1's)
+    ("K3 temporal_block", ("temporal_block_kernel", "temporal_fused_kernel",
+                           "TemporalK3")),
+    ("K4 attention_block", ("attention_block_kernel", "TemporalK4")),
     # K7: the Hopper kernel (bf16, head width 64) and the mma.sync ones
     ("K7 attention_proj", ("attention_heads_sm90_kernel", "attention_proj_")),
     ("K10 resize_bilinear", ("resize_bilinear_kernel",)),
     # K1 (K9 launches it too): the Hopper loop and the mma.sync / fp32 ones
     ("K1 attention_qkv", ("attention_sm90_kernel", "attention_qkv_")),
     ("K2 layer_norm", ("_ln_fwd",)),
-    ("K3 temporal_block", ("temporal_block_kernel",)),
-    ("K4 attention_block", ("attention_block_kernel",)),
     ("K5 tiny_seq", ("tiny_seq_kernel",)),
     ("K6 stream_kv", ("stream_kv_kernel",)),
     ("copy", ("Memcpy", "Memset", "copy_kernel")),
