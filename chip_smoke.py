@@ -45,12 +45,14 @@ with every launch counter set to 0 just before it and read just after:
     encoder's qkv shape on vitl's first qkv weight, bf16 and fp32
     activations, bit-identical with its twin and within 2e-2 of the bf16
     linear of the float weights;
-  * ``probes``: the three measurement entry points' runs
+  * ``probes``: the measurement entry points' runs
     (``vda_tpu_torch.probes``): every K12 variant of K1 at (32, 1370,
     3072) (all but ``mma_sync`` on the Hopper loop), K13 and K11's
     dynamic-quant arm at (45056, 1024) @ (1024, 3072), K14's four stages
-    and K6's two, and the design steps and stages of K3/K4's Hopper chain
-    at vitl's four temporal shapes, each arm against its twin;
+    and K6's two, the design steps and stages of K3/K4's Hopper chain at
+    vitl's four temporal shapes, and the design steps of K6's Hopper loop
+    (the four stream shapes) and K10's Hopper kernel (the two tail
+    shapes), each arm against its twin;
   * ``host_sync``: a steady ``StreamingDepth.submit`` with the device held
     by ``torch.cuda._sleep`` (~50 ms, or three times an idle submit's host
     time if longer) returns in less host time than the sleep (vits; vitl's
@@ -86,6 +88,15 @@ every K3/K4 launch of phases ``main_path``, ``vits_window`` and
 (``temporal_kernel.launches_by_loop``), the fp32 cases to stay on the old
 kernels, and phase ``probes`` runs the design steps and the chain's stages
 (``probes.bench_temporal_sm90``) against their twins.
+K6 in bf16 runs the Hopper loop of csrc/stream_kv_sm90.cuh: its lines, at
+the four stream shapes (mm0-mm3), carry the old kernel's time on the same
+values (``old_ms``, the largest |new - old| beside it) and the split path
+of library calls (``split_ms``); the fp32 case stays on the old kernel;
+every K6 launch of phases ``kernels``, ``stream`` and ``probes`` is
+asserted on the loop it should run (``stream_kernel.launches_by_loop``),
+and the loop repeats bit for bit.  K10 runs csrc/resize_sm90.cuh: its
+lines carry the old kernel's time (``old_ms``), bit-exact with the twin
+and with itself over 30 repeats.
 K11 and K13 run the Hopper GEMM mainloop (csrc/gemm_sm90.cuh): their lines
 carry the old mma.sync loop's time on the same values (``mma_sync_ms``,
 ``probes.bench_gemm_sm90``'s ``mma_sync`` step) and the largest |new -
@@ -146,7 +157,7 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
            "vda_tpu/ops/pallas_temporal.py:162"),
     "K5": ("cuda", "vda_tpu_torch/csrc/tiny_seq_attention.cu",
            "vda_tpu/ops/pallas_attention.py:517"),
-    "K6": ("cuda", "vda_tpu_torch/csrc/stream_kv_attention.cu",
+    "K6": ("cuda", "vda_tpu_torch/csrc/stream_kv_sm90.cuh",
            "vda_tpu/ops/pallas_stream.py:119"),
     "K7": ("cuda", "vda_tpu_torch/csrc/attention_proj.cu",
            "vda_tpu/ops/pallas_attention.py:274"),
@@ -154,7 +165,7 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
            "vda_tpu/ops/pallas_attention.py:641"),
     "K9": ("cuda", "vda_tpu_torch/csrc/attention_qkv.cu",
            "vda_tpu/ops/pallas_attention.py:112"),
-    "K10": ("cuda", "vda_tpu_torch/csrc/resize_bilinear.cu",
+    "K10": ("cuda", "vda_tpu_torch/csrc/resize_sm90.cuh",
             "vda_tpu/ops/pallas_resize.py:134"),
     "K11": ("cuda", "vda_tpu_torch/csrc/int8_matmul.cu",
             "vda_tpu/ops/quant.py:66"),
@@ -341,13 +352,16 @@ def phase_kernels(model):
     results = {}
 
     def check(name, shape, kern, twin, twin_inputs_fp32, tol, reps=5,
-              cost=None, library=None, ops_dtype=None, **timed):
+              cost=None, library=None, ops_dtype=None, held=False, **timed):
         """cost: (bytes, operations) of the call, the operations at the peak
         rate of ``ops_dtype`` (default: the output's); library: one PyTorch
-        call computing the same function, timed as a yardstick only; timed:
-        other calls to time beside it, by name (``mma_sync`` or ``old``: the
-        code the kernel replaced on the same values, whose largest
-        difference from the kernel is printed too)."""
+        call computing the same function, timed as a yardstick only; held:
+        also time the kernel with the device held while the host enqueues
+        the calls (``held_ms``, ``probes.time_held_ms``: for kernels short
+        enough that their wrapper's host work sets the pace of ``ms``);
+        timed: other calls to time beside it, by name (``mma_sync`` or
+        ``old``: the code the kernel replaced on the same values, whose
+        largest difference from the kernel is printed too)."""
         got = kern()
         ref = twin(fp32=twin_inputs_fp32)
         extra = {}
@@ -366,6 +380,10 @@ def phase_kernels(model):
                    else time_ms(library, reps),
                    **{f"{k}_ms": time_ms(f, reps) for k, f in timed.items()},
                    **extra)
+        if held:
+            from vda_tpu_torch.probes import time_held_ms
+
+            res["held_ms"] = time_held_ms(kern, reps)
         if cost is not None:
             res["bound_ms"], res["bound_by"] = bound(*cost,
                                                      ops_dtype or got.dtype)
@@ -477,7 +495,7 @@ def phase_kernels(model):
               TOL["K5" if dtype == bf else "fp32"],
               cost=(4 * bd * t * c * qkv.element_size(), 4 * bd * t * t * c),
               library=lambda: F.scaled_dot_product_attention(
-                  qh, kh, vh, scale=dh ** -0.5))
+                  qh, kh, vh, scale=dh ** -0.5), held=True)
 
     for shape in ((5476, 32, 64), (1369, 32, 64), (1369, 32, 192),
                   (1369, 1, 1024), (361, 1, 1024), (1369, 1, 256),
@@ -485,8 +503,13 @@ def phase_kernels(model):
         k5_case(*shape, bf)
     k5_case(37, 7, 256, torch.float32)  # ragged T, fp32
 
-    # K6 at the shapes of a streaming step with ctx_kernel (vitl, 31 rows);
-    # the fp32 case has rows that are not valid
+    # K6 at the shapes of a streaming step with ctx_kernel (vitl, 31 rows:
+    # mm0, mm1, mm2, mm3), bf16 on the Hopper loop, beside the kernel it
+    # replaced on the same values (the probe's "sm80" step: old_ms,
+    # max_abs_vs_old) and the split path of library calls (split_ms); the
+    # fp32 case, with rows that are not valid, on the old kernel
+    from vda_tpu_torch.probes import bench_stream_sm90 as bs
+
     def k6_case(bhw, rows, c, dtype, n_valid, heads=8):
         def mk(*shape):
             return torch.randn(*shape, device="cuda", generator=g).to(dtype)
@@ -497,7 +520,15 @@ def phase_kernels(model):
         valid[:n_valid] = True
         zero = torch.zeros(rows, c, device="cuda")
         scale = (c // heads) ** -0.5
-        es = q.element_size()
+        loop = "sm90" if dtype == bf else "sm80"
+        if k6.loop_of(dtype, c, heads) != loop:
+            raise AssertionError(f"K6 at {(bhw, rows, c)} {dtype} is not on "
+                                 f"the {loop} loop")
+        ins = dict(q=q, kn=kn, vn=vn, kb=kb, vb=vb, pk=pk, pv=pv,
+                   valid=valid.to(torch.uint8), scale=scale)
+        timed = {} if dtype != bf else dict(
+            old=lambda: bs.variant("sm80", ins),
+            split=lambda: bs.split_path(ins))
 
         def twin(fp32):
             if fp32:  # the encodings added in the working dtype
@@ -507,16 +538,27 @@ def phase_kernels(model):
             return k6.stream_kv_attention_reference(
                 q, kn, vn, kb, vb, pk, pv, valid, heads, scale)
 
-        check("K6", (bhw, rows, c),
-              lambda: k6.stream_kv_attention(q, kn, vn, kb, vb, pk, pv, valid,
-                                             heads, scale),
-              twin, True, TOL["K6" if dtype == bf else "fp32"],
-              cost=((4 * bhw * c + 2 * bhw * n_valid * c + 2 * n_valid * c)
-                    * es + rows, bhw * (n_valid + 1) * c * 4
-                    + 2 * bhw * n_valid * c))
+        def kern():
+            return k6.stream_kv_attention(q, kn, vn, kb, vb, pk, pv, valid,
+                                          heads, scale)
 
-    for shape in ((1369, 31, 1024), (361, 31, 1024), (1369, 31, 256),
-                  (5476, 31, 256)):
+        loops0 = dict(k6.launches_by_loop)
+        check("K6", (bhw, rows, c), kern, twin, True,
+              TOL["K6" if dtype == bf else "fp32"],
+              cost=bs.cost(bhw, rows, c, n_valid, q.element_size()),
+              held=True, **timed)
+        if dtype == bf:  # the loop's sums have one order: the same bits
+            first = kern()
+            if not all(torch.equal(kern(), first) for _ in range(30)):
+                raise AssertionError(f"K6 at {(bhw, rows, c)} differs "
+                                     "between repeats")
+        torch.cuda.synchronize()
+        moved = {k: v - loops0[k] for k, v in k6.launches_by_loop.items()}
+        if moved[loop] == 0 or any(moved[k] for k in moved if k != loop):
+            raise AssertionError(f"K6 launches by loop {moved}, all "
+                                 f"expected on {loop}")
+
+    for shape in bs.SHAPES.values():
         k6_case(*shape, bf, n_valid=31)
     k6_case(37, 31, 256, torch.float32, n_valid=19)
 
@@ -609,22 +651,27 @@ def phase_kernels(model):
     k8_case(multi_crop, torch.float32, TOL["K8_fp32"])
     k8_case([n] * b, bf, TOL["K8"], k1=lambda qkv: k1.flash_attention_qkv(
         qkv.view(b, n, 3 * h * d), h, d ** -0.5))
-    # K10: the vitl tail's two upsamples (16-frame chunks), bit-exact with
-    # the twin; ~9 fp32 operations an output element, at the fp32 rate
-    for shape, out_hw in (((16, 148, 148, 256), (296, 296)),
-                          ((16, 296, 296, 128), (518, 518))):
+    # K10: the vitl tail's two upsamples (16-frame chunks) on the Hopper
+    # kernel, bit-exact with the twin and with itself over 30 repeats, beside
+    # the kernel it replaced (the probe's "old" step: old_ms,
+    # max_abs_vs_old); ~9 fp32 operations an output element, at the fp32
+    # rate
+    from vda_tpu_torch.probes import bench_resize_sm90 as br
+
+    for shape, out_hw in br.SHAPES:
         x = torch.randn(*shape, device="cuda", generator=g).to(bf)
-        n_out = shape[0] * out_hw[0] * out_hw[1] * shape[3]
         check("K10", (*shape, *out_hw),
               lambda: k10.resize_bilinear_fused(x, out_hw),
               lambda fp32: k10.resize_bilinear_fused_reference(x, out_hw),
-              False, TOL["K10"], reps=20,
-              cost=((x.numel() + n_out) * 2, 9 * n_out),
+              False, TOL["K10"], reps=20, cost=br.cost(shape, out_hw),
               ops_dtype=torch.float32,
-              library=lambda: F.interpolate(
-                  x.permute(0, 3, 1, 2), size=out_hw, mode="bilinear",
-                  align_corners=True))
-        del x
+              library=lambda: br.library(x, out_hw),
+              old=lambda: br.variant("old", x, out_hw))
+        first = k10.resize_bilinear_fused(x, out_hw)
+        if not all(torch.equal(k10.resize_bilinear_fused(x, out_hw), first)
+                   for _ in range(30)):
+            raise AssertionError(f"K10 at {shape} differs between repeats")
+        del x, first
 
     # K11: the kernel at the encoder's qkv product, 32 x 1370 rows of 1024
     # -> 3072, on vitl's first qkv weight quantised and per-row quantised
@@ -900,6 +947,7 @@ def phase_stream(model, frames):
     import vda_tpu_torch as vt
     from vda_tpu_torch import ops
     from vda_tpu_torch.infer.streaming import _BUF_ROWS
+    from vda_tpu_torch.ops import stream_kernel
 
     streams = {"kv": vt.StreamingDepth(model),
                "ctx": vt.StreamingDepth(model, ctx_kernel=True)}
@@ -921,10 +969,13 @@ def phase_stream(model, frames):
             counts = ops.launch_counts()
             want = {**PER_STEP, "K5": 8 if i == 0 else 0,
                     "K6": 8 if i and name == "ctx" else 0}
-            if counts != want or not by_loop_ok(counts):
+            k6_loops = dict(stream_kernel.launches_by_loop)
+            if counts != want or not by_loop_ok(counts) or \
+                    k6_loops != {"sm90": want["K6"], "sm80": 0}:
                 raise AssertionError(f"stream {name} step {i}: launches "
                                      f"{counts} != {want}, or a K1 launch "
-                                     "missed the Hopper loop")
+                                     "missed the Hopper loop, or a K6 "
+                                     f"launch its own ({k6_loops})")
             total = {k: total[k] + counts[k] for k in total}
             d = depth[name]
             if d.shape != (SIZE, SIZE) or not torch.isfinite(d).all():
@@ -1425,26 +1476,31 @@ def phase_int8(model):
 
 
 def phase_probes():
-    """The measurement kernels' path: the three probes' ``run`` as their
-    entry points run them, each arm held against its twin by the probe:
-    every K12 variant at (32, 1370, 3072), K13 (and K11's dynamic-quant arm)
-    at (45056, 1024) @ (1024, 3072), and K14's four stages with K6's two
-    stages.  Returns the launches of the three runs."""
+    """The measurement kernels' path: the probes' ``run`` as their entry
+    points run them, each arm held against its twin by the probe: every K12
+    variant at (32, 1370, 3072), K13 (and K11's dynamic-quant arm) at
+    (45056, 1024) @ (1024, 3072), K14's four stages with K6's stages, the
+    design steps and stages of K3/K4's Hopper chain, and the design steps
+    of K6's Hopper loop and K10's Hopper kernel at their main-path shapes.
+    Returns the launches of the runs."""
     from vda_tpu_torch import ops
-    from vda_tpu_torch.ops import quant
+    from vda_tpu_torch.ops import quant, stream_kernel
     from vda_tpu_torch.probes import (bench_attn_variants, bench_int8,
+                                      bench_resize_sm90, bench_stream_sm90,
                                       bench_temporal_sm90,
                                       probe_stream_kernel)
 
     reps, stream_reps = 5, 20
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    bt = bench_temporal_sm90
-    bt.launches = bt.stage_launches = 0
+    bt, bs, br = bench_temporal_sm90, bench_stream_sm90, bench_resize_sm90
+    bt.launches = bt.stage_launches = bs.launches = br.launches = 0
     rows = {"attn_variants": bench_attn_variants.run(reps=reps),
             "int8": bench_int8.run(reps=reps),
             "stream": probe_stream_kernel.run(reps=stream_reps),
-            "temporal_sm90": bt.run(reps=reps)}
+            "temporal_sm90": bt.run(reps=reps),
+            "stream_sm90": bs.run(reps=reps),
+            "resize_sm90": br.run(reps=reps)}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     # K3/K4's design steps: each step and stage a warm-up, ``reps`` timed
@@ -1454,26 +1510,38 @@ def phase_probes():
                   for k, *_ in bt.SHAPES)
     want_bt = (n_steps * (reps + 2),
                sum(len(bt.COUNT[k]) for k, *_ in bt.SHAPES) * (reps + 2))
-    if (bt.launches, bt.stage_launches) != want_bt:
-        raise AssertionError(f"temporal probe launches "
-                             f"{(bt.launches, bt.stage_launches)} != "
-                             f"{want_bt}")
+    # K6's steps: warm and L2-flushed timings (a warm-up and ``reps`` each)
+    # and one checked call; K10's: one timing and one checked call
+    want_bs = len(bs.VARIANTS) * len(bs.SHAPES) * (2 * reps + 3)
+    want_br = len(br.VARIANTS) * len(br.SHAPES) * (reps + 2)
+    got = (bt.launches, bt.stage_launches, bs.launches, br.launches)
+    if got != (*want_bt, want_bs, want_br):
+        raise AssertionError(f"design-step probe launches {got} != "
+                             f"{(*want_bt, want_bs, want_br)}")
     loops = dict(quant.gemm_launches_by_loop)
     k12_loops = dict(bench_attn_variants.launches_by_loop)
+    k6_loops = dict(stream_kernel.launches_by_loop)
     emit(phase="probes", launches=counts, gemm_launches_by_loop=loops,
-         k12_launches_by_loop=k12_loops, **rows)
+         k12_launches_by_loop=k12_loops, k6_launches_by_loop=k6_loops,
+         **rows)
     # each arm: a warm-up and ``reps`` timed calls, and one checked call;
-    # at head width 64 every K12 variant but mma_sync on the Hopper loop
+    # at head width 64 every K12 variant but mma_sync on the Hopper loop;
+    # K14's K6 stages (bf16, 43 rows) and the wrapper's host timing on K6's
+    # Hopper loop
     n_variants = len(bench_attn_variants.VARIANTS)
+    # K6: K14's two stages, and the wrapper's host timing (a warm-up and
+    # ``HOST_REPS`` calls a shape) in K6's design-step probe
     want = {**ZERO, "K12": n_variants * (reps + 2), "K13": 2 * (reps + 2),
             "K11": reps + 2, "K14": len(probe_stream_kernel.STAGES)
-            * (stream_reps + 2), "K6": 2 * (stream_reps + 2)}
+            * (stream_reps + 2),
+            "K6": 2 * (stream_reps + 2) + len(bs.SHAPES) * (bs.HOST_REPS + 1)}
     want_k12 = {"sm90": (n_variants - 1) * (reps + 2), "sm80": reps + 2}
     if counts != want or not gemm_by_loop_ok(counts, loops) \
-            or k12_loops != want_k12:
+            or k12_loops != want_k12 \
+            or k6_loops != {"sm90": want["K6"], "sm80": 0}:
         raise AssertionError(f"probes launches {counts} != {want}, GEMM by "
                              f"loop {loops}, K12 by loop {k12_loops} != "
-                             f"{want_k12}")
+                             f"{want_k12}, K6 by loop {k6_loops}")
     bad = [r for rs in rows.values() for r in rs if not r.get("ok", True)]
     if bad:
         raise AssertionError(f"probe arms disagree with their twins: {bad}")

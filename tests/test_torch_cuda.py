@@ -59,6 +59,8 @@ from vda_tpu_torch.ops.resize import resize_bilinear
 from vda_tpu_torch.probes.bench_attn_proj_sm90 import VARIANTS as K7_VARIANTS
 from vda_tpu_torch.probes.bench_attn_variants import VARIANTS as K12_VARIANTS
 from vda_tpu_torch.probes.bench_gemm_sm90 import VARIANTS as GEMM_VARIANTS
+from vda_tpu_torch.probes.bench_resize_sm90 import VARIANTS as K10_VARIANTS
+from vda_tpu_torch.probes.bench_stream_sm90 import VARIANTS as K6_VARIANTS
 
 pytestmark = pytest.mark.cuda
 
@@ -409,8 +411,13 @@ def test_k5_tiny_seq_attention(gen, t, c, heads, dtype, fused):
 @pytest.mark.parametrize("bhw,rows,c,heads,n_valid", [
     (1, 31, 1024, 8, 31), (37, 31, 256, 8, 31), (37, 31, 256, 8, 17),
     (5, 31, 64, 8, 0), (19, 31, 192, 8, 30), (3, 31, 384, 6, 31),
-    (2, 31, 512, 1, 31), (7, 5, 1024, 8, 2), (1369, 31, 1024, 8, 31)])
+    (2, 31, 512, 1, 31), (7, 5, 1024, 8, 2), (1369, 31, 1024, 8, 31),
+    (32, 43, 1024, 8, 31), (33, 43, 256, 8, 40), (5476, 31, 256, 8, 31),
+    (4, 31, 384, 8, 31), (3, 70, 96, 12, 65)])
 def test_k6_stream_kv_attention(gen, dtype, bhw, rows, c, heads, n_valid):
+    """K6 against its twin, on the loop ``loop_of`` names: the Hopper loop
+    in bf16 at head widths a multiple of 8 up to 128 (more than one 32-row
+    chunk at 43 and 70 rows), the old kernel in fp32 and at 512."""
     def mk(*shape):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
     q, kn, vn = mk(bhw, c), mk(bhw, c), mk(bhw, c)
@@ -419,14 +426,58 @@ def test_k6_stream_kv_attention(gen, dtype, bhw, rows, c, heads, n_valid):
     valid = torch.zeros(rows, dtype=torch.bool, device="cuda")
     valid[torch.randperm(rows, device="cuda", generator=gen)[:n_valid]] = 1
     kb[:, ~valid] = float("nan")  # rows that are not valid are never read
+    vb[:, ~valid] = float("nan")
     scale = (c // heads) ** -0.5
     assert stream_kernel.use_kernel(1, c, heads)
-    got = _launched("K6", lambda: stream_kernel.stream_kv_attention(
-        q, kn, vn, kb, vb, pk, pv, valid, heads, scale))
+    loop = "sm90" if dtype == BF and c // heads <= 128 else "sm80"
+    assert stream_kernel.loop_of(dtype, c, heads) == loop
+    got = _on_loop(lambda: stream_kernel.launches_by_loop, loop,
+                   lambda: _launched("K6", lambda: (
+                       stream_kernel.stream_kv_attention(
+                           q, kn, vn, kb, vb, pk, pv, valid, heads, scale))))
     ref = stream_kernel.stream_kv_attention_reference(
         q, kn, vn, kb, vb, pk, pv, valid, heads, scale)
     assert got.dtype == dtype and got.shape == (bhw, c)
     assert _rel(ref, got) < TOL[dtype]
+
+
+# K6's Hopper loop launched back to back gives the same bits every time (its
+# sums have one order), at the stream shapes of mm0 and mm3
+@pytest.mark.parametrize("bhw,c", [(1369, 1024), (5476, 256)])
+def test_k6_repeats_bit_for_bit(gen, bhw, c):
+    from vda_tpu_torch.probes import bench_stream_sm90 as bs
+
+    ins = bs.inputs(gen, bhw, 31, c)
+    args = (ins["q"], ins["kn"], ins["vn"], ins["kb"], ins["vb"], ins["pk"],
+            ins["pv"], stream_kernel.all_valid(31, ins["q"].device), 8,
+            ins["scale"])
+    first = stream_kernel.stream_kv_attention(*args)
+    for _ in range(30):
+        assert torch.equal(stream_kernel.stream_kv_attention(*args), first)
+    assert _rel(bs.twin("sm90", ins), first) < TOL[BF]
+
+
+@pytest.mark.parametrize("step", list(K6_VARIANTS))
+def test_k6_design_steps(gen, step):
+    """Each step of probes/bench_stream_sm90.py against what it writes: the
+    twin (no_pe: with zero encodings) within K6's bound, or an output left
+    at zero.  k_ahead takes one 32-row chunk an item and refuses more
+    rows."""
+    from vda_tpu_torch.probes import bench_stream_sm90 as bs
+
+    for bhw, rows, c in ((37, 31, 1024), (40, 31, 256), (9, 43, 1024)):
+        ins = bs.inputs(gen, bhw, rows, c)
+        if step == "k_ahead" and rows > 31:
+            with pytest.raises(RuntimeError, match="vda_stream_kv_variant"):
+                bs.variant(step, ins)
+            continue
+        got = bs.variant(step, ins)
+        torch.cuda.synchronize()
+        want = bs.twin(step, ins)
+        if step in bs.PARTS:
+            assert torch.equal(got, want)
+        else:
+            assert _rel(want, got) < TOL[BF], (bhw, rows, c)
 
 
 def test_k5_k6_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -612,7 +663,10 @@ def test_k7_design_steps_agree_with_their_twins(gen, variant):
 K10_CASES = [((8, 148, 148, 256), (296, 296)),
              ((8, 296, 296, 128), (518, 518)),
              ((8, 20, 24, 128), (32, 40)), ((8, 148, 16, 128), (296, 28)),
-             ((9, 9, 7, 256), (14, 13)), ((8, 5, 3, 384), (32, 7))]
+             ((9, 9, 7, 256), (14, 13)), ((8, 5, 3, 384), (32, 7)),
+             ((16, 148, 148, 256), (296, 296)),
+             ((16, 296, 296, 128), (518, 518)),
+             ((8, 300, 330, 128), (518, 518)), ((8, 3, 1000, 256), (7, 2000))]
 
 
 @pytest.mark.parametrize("shape,out_hw", K10_CASES)
@@ -636,6 +690,40 @@ def test_k10_resize_bilinear(gen, shape, out_hw):
                            ref)
     plain = _rel(resize_bilinear(x.float(), out_hw), got)
     assert plain < 2e-2  # tests/test_ops.py's bound against fp32
+
+
+# K10 launched back to back gives the same bits every time: a row read
+# from shared memory before its lerp lands, or rewritten while another warp
+# still reads it, would show as a difference
+@pytest.mark.parametrize("shape,out_hw", K10_CASES[6:8])
+def test_k10_repeats_bit_for_bit(gen, shape, out_hw):
+    x = torch.randn(*shape, device="cuda", generator=gen).to(BF)
+    first = resize_kernel.resize_bilinear_fused(x, out_hw)
+    for _ in range(30):
+        assert torch.equal(resize_kernel.resize_bilinear_fused(x, out_hw),
+                           first)
+    assert torch.equal(first,
+                       resize_kernel.resize_bilinear_fused_reference(x,
+                                                                     out_hw))
+
+
+@pytest.mark.parametrize("step", list(K10_VARIANTS))
+def test_k10_design_steps(gen, step):
+    """Each step of probes/bench_resize_sm90.py: old and sm90 bit for bit
+    with the twin; loads leave an output of zeros as it was, stores write
+    zeros over every element of one filled with NaN."""
+    from vda_tpu_torch.probes import bench_resize_sm90 as br
+
+    for shape, out_hw in (((8, 20, 24, 128), (32, 40)),
+                          ((9, 37, 37, 256), (70, 74))):
+        x = torch.randn(*shape, device="cuda", generator=gen).to(BF)
+        assert resize_kernel.supported(x, out_hw, True, None)
+        fill = float("nan") if step == "stores" else 0.0
+        out = torch.full((shape[0], *out_hw, shape[3]), fill, device="cuda",
+                         dtype=BF)
+        got = br.variant(step, x, out_hw, out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, br.twin(step, x, out_hw)), (shape, out_hw)
 
 
 def test_k7_k9_k10_refuse_what_the_kernels_do_not_take(gen):

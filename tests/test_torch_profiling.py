@@ -51,6 +51,10 @@ from vda_tpu_torch.utils import profiling
      "(...)", "K5 tiny_seq"),
     ("void vda::(anonymous namespace)::stream_kv_kernel<float>(...)",
      "K6 stream_kv"),
+    ("void vda::stream90::kv_loop_kernel<16, 0>(vda::stream90::Args)",
+     "K6 stream_kv"),
+    ("void vda::resize90::resize90_kernel<128, 0>(vda::resize90::Args)",
+     "K10 resize_bilinear"),
     ("void vda::(anonymous namespace)::attention_proj_bf16_kernel<64>(...)",
      "K7 attention_proj"),
     ("void vda::(anonymous namespace)::resize_bilinear_kernel(...)",

@@ -6,6 +6,11 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace vda {
 
 __host__ __device__ constexpr size_t align128(size_t x) {
@@ -50,6 +55,75 @@ __device__ __forceinline__ void zero_row(T* dst, int n, int first,
   constexpr int VE = 16 / sizeof(T);
   for (int c = first * VE; c < n; c += stride * VE)
     *reinterpret_cast<uint4*>(dst + c) = make_uint4(0, 0, 0, 0);
+}
+
+// Streaming multiprocessors of the current device (0 if it cannot be
+// read): the size of a persistent grid.  Read once a device.
+inline int device_sms() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];  // 0: not read yet
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kDevices && (sms = known[dev].load()) > 0) return sms;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < kDevices) known[dev].store(sms);
+  return sms;
+}
+
+constexpr size_t kSmemPerSm = 228 * 1024;  // an SM's: the carveout's 100%
+
+// Sets the kernel's shared memory and carveout and returns the blocks an
+// SM runs: as many as fit, at most `max_blocks` (0: no cap), the carveout
+// then just large enough for them.  Both are attributes of the kernel, so
+// they are set again only when a launch asks for other values than the
+// kernel's last: a kernel launched at one size makes these calls once.
+template <class K>
+cudaError_t fit_blocks(K kern, int threads, size_t smem, int max_blocks,
+                       int* per_sm) {
+  struct Fit {
+    int threads;
+    size_t smem;
+    int max_blocks, per_sm;
+  };
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, Fit> last;  // (device, kernel)
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const auto key = std::make_pair(dev, reinterpret_cast<const void*>(kern));
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = last.find(key);
+  if (it != last.end() && it->second.threads == threads &&
+      it->second.smem == smem && it->second.max_blocks == max_blocks) {
+    *per_sm = it->second.per_sm;
+    return cudaSuccess;
+  }
+  last.erase(key);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutDefault);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (*per_sm < 1) return cudaErrorInvalidValue;
+  if (max_blocks > 0 && *per_sm > max_blocks) {
+    *per_sm = max_blocks;
+    const size_t want = max_blocks * (smem + 1024);  // 1 KB a block kept
+    const int carve = static_cast<int>((want * 100 + kSmemPerSm - 1) /
+                                       kSmemPerSm);
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+        carve < 100 ? carve : 100);
+    if (e != cudaSuccess) return e;
+  }
+  last[key] = Fit{threads, smem, max_blocks, *per_sm};
+  return cudaSuccess;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -686,15 +686,6 @@ inline cudaError_t make_map_2d(CUtensorMap* map, const void* ptr,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-inline int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return sms;
-}
-
 // a (M, K) and bt (N, K) of T, kb = K * elem bytes a row (a multiple of
 // 16), both 16-byte aligned; epi writes out (M, N).
 template <class C, class T, class Epi>
@@ -728,7 +719,7 @@ cudaError_t launch(const void* a, const void* bt, int m, int n, int kb,
       ((n + C::bn - 1) / C::bn);
   if (units * CL > 0x7fffffff) return cudaErrorInvalidValue;
   if constexpr (CL == 1) {
-    const int sms = sm_count();
+    const int sms = device_sms();
     if (sms == 0) return cudaErrorInvalidValue;
     const int grid = C::persistent && units > sms ? sms
                                                   : static_cast<int>(units);

@@ -14,14 +14,20 @@
 // is bytes: a position's context is 2 x rows x C values, each used in one
 // product, so the card can do nothing faster than read it once.  Written in
 // CUDA C++ rather than Triton (which would serve as well, since no tensor
-// core is needed) to keep the one build route of the other kernels.  One
-// block owns one position and a group of heads: it copies the group's
-// columns of the valid context rows, and of the new row, into shared memory
-// with 16-byte cp.async loads (rows that are not valid are never read) and
-// gives each head a warp.  Scores take a lane a row (the context is 31
-// rows, so with the new row one lane each), the softmax runs on warp
-// shuffles, and the weighted sum takes a lane a column.  The encodings,
-// the same for every position, come through the cache.
+// core is needed) to keep the one build route of the other kernels.
+//
+// Two loops, chosen by (C, heads, dtype) alone (vda_stream_kv_loop):
+//  * 90: bf16 at head widths a multiple of 8 up to 128, every main-path
+//    shape: stream_kv_sm90.cuh (persistent blocks, the encodings staged in
+//    shared memory once, a warp a (position, head) with a 32-row chunk of
+//    K and V in registers, loaded before the first product).
+//  * 80: fp32 and wider heads: the kernel below.  One block owns one
+//    position and a group of heads: it copies the group's columns of the
+//    valid context rows, and of the new row, into shared memory with
+//    16-byte cp.async loads (rows that are not valid are never read) and
+//    gives each head a warp.  Scores take a lane a row, the softmax runs on
+//    warp shuffles, and the weighted sum takes a lane a column.  The
+//    encodings, the same for every position, come through the cache.
 //
 // Rounding follows the TPU kernel: the encoding add in the working type, fp32
 // products and sums, exp of the bf16-rounded shifted score rounded to bf16
@@ -29,7 +35,7 @@
 
 #include <cuda_pipeline.h>
 
-#include "common.cuh"
+#include "stream_kv_sm90.cuh"
 
 namespace vda {
 namespace {
@@ -194,7 +200,29 @@ cudaError_t launch(const void* q, const void* kn, const void* vn,
 }
 
 }  // namespace
+
+cudaError_t stream_kv_sm80(const void* q, const void* kn, const void* vn,
+                           const void* kb, const void* vb, const void* pek,
+                           const void* pev, const unsigned char* valid,
+                           void* out, int bhw, int rows, int c, int heads,
+                           float scale, bool is_bf16, cudaStream_t stream) {
+  if (bhw <= 0 || rows < 0 || heads <= 0 || c % heads || (c / heads) % 8 ||
+      c / heads > 512)
+    return cudaErrorInvalidValue;
+  if (is_bf16)
+    return launch<__nv_bfloat16>(q, kn, vn, kb, vb, pek, pev, valid, out,
+                                 bhw, rows, c, heads, scale, stream);
+  return launch<float>(q, kn, vn, kb, vb, pek, pev, valid, out, bhw, rows, c,
+                       heads, scale, stream);
+}
+
 }  // namespace vda
+
+// The loop vda_stream_kv_attention runs at this shape: 90 (the Hopper loop
+// of stream_kv_sm90.cuh) or 80 (the kernel above).
+extern "C" int vda_stream_kv_loop(int c, int heads, int is_bf16) {
+  return is_bf16 && vda::stream90::takes(c, heads) ? 90 : 80;
+}
 
 extern "C" int vda_stream_kv_attention(const void* q, const void* kn,
                                        const void* vn, const void* kb,
@@ -203,14 +231,12 @@ extern "C" int vda_stream_kv_attention(const void* q, const void* kn,
                                        void* out, int bhw, int rows, int c,
                                        int heads, float scale, int is_bf16,
                                        void* stream) {
-  if (bhw <= 0 || rows < 0 || heads <= 0 || c % heads || (c / heads) % 8 ||
-      c / heads > 512)
-    return cudaErrorInvalidValue;
   const auto* flags = static_cast<const unsigned char*>(valid);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return vda::launch<__nv_bfloat16>(q, kn, vn, kb, vb, pek, pev, flags, out,
-                                      bhw, rows, c, heads, scale, st);
-  return vda::launch<float>(q, kn, vn, kb, vb, pek, pev, flags, out, bhw, rows,
-                            c, heads, scale, st);
+  if (vda_stream_kv_loop(c, heads, is_bf16) == 90)
+    return vda::stream90::launch<vda::stream90::kFull>(
+        q, kn, vn, kb, vb, pek, pev, flags, out, bhw, rows, c, heads, scale,
+        0, st);
+  return vda::stream_kv_sm80(q, kn, vn, kb, vb, pek, pev, flags, out, bhw,
+                             rows, c, heads, scale, is_bf16 != 0, st);
 }

@@ -220,9 +220,9 @@ def _temporal_attention_kv_ctx(attn: TemporalAttention, h, cfg: ModelConfig,
     q = linear(attn.to_q, h + pe[None, t_full - 1:t_full])[:, 0]
     kn = k_new[:, 0] + pe_k[t_full - 1]
     vn = v_new[:, 0] + pe_v[t_full - 1]
-    valid = torch.ones(t_ctx, dtype=torch.bool, device=h.device)
     o = sk.stream_kv_attention(q, kn, vn, kc.to(h.dtype), vc.to(h.dtype),
-                               pe_k[:t_ctx], pe_v[:t_ctx], valid, heads,
+                               pe_k[:t_ctx], pe_v[:t_ctx],
+                               sk.all_valid(t_ctx, h.device), heads,
                                (c // heads) ** -0.5)
     return linear(attn.to_out[0], o[:, None]), (k_new, v_new)
 

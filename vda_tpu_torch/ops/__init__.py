@@ -56,6 +56,8 @@ def reset_launch_counts() -> None:
         for k, v in temporal_kernel.launches_by_loop.items()}
     tiny_seq_kernel.launches = 0
     stream_kernel.launches = 0
+    stream_kernel.launches_by_loop = dict.fromkeys(
+        stream_kernel.launches_by_loop, 0)
     for probe in _probes():
         probe.launches = 0
     k12 = _probes()[0]

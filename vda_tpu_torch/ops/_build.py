@@ -51,9 +51,12 @@ _SIGNATURES = {
     "vda_attention_proj_loop": [_I, _I],
     # qkv, w, gamma_bias, x, out, B, N, H, valid_len, scale, variant, stream
     "vda_attention_proj_sm90_variant": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
-    # x, out, itab, ftab, B, OH, OW, C, block_rows, stride_b, stride_h,
-    # stride_w, stream
+    # x, out, itab, ftab, B, W, OH, OW, C, stride_b, stride_h, stride_w,
+    # stream
     "vda_resize_bilinear": [_P] * 4 + [_I] * 5 + [_I64] * 3 + [_P],
+    # the operands of vda_resize_bilinear, keep, variant, stream
+    "vda_resize_variant": [_P] * 4 + [_I] * 5 + [_I64] * 3 + [_I] * 2
+    + [_P],
     # C, heads, T, is_bf16, full -> 90 (the Hopper chain) or 80
     "vda_temporal_loop": [_I] * 5,
     # BD, T, C, heads, is_bf16, full, *workspace_bytes (out)
@@ -78,6 +81,10 @@ _SIGNATURES = {
     # q, k_new, v_new, k_buf, v_buf, pe_k, pe_v, valid, out, BHW, rows, C,
     # heads, scale, is_bf16, stream
     "vda_stream_kv_attention": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+    # C, heads, is_bf16 -> 90 (the Hopper loop) or 80
+    "vda_stream_kv_loop": [_I] * 3,
+    # the operands of vda_stream_kv_attention, scale, keep, variant, stream
+    "vda_stream_kv_variant": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P],
     # q, k, v, out, tiles, n_tiles, heads, D, row_stride, scale, is_bf16,
     # stream
     "vda_segment_attention": [_P] * 5 + [_I] * 3 + [_I64, _F, _I, _P],

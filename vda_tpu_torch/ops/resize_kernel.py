@@ -16,15 +16,19 @@ MXU matmul with that (W_out, W_in) matrix; its two nonzeros a row are read
 directly here, and the sum of two exact bf16·bf16 products has one rounding
 in any order, so kernel, twin and the TPU kernel agree bit for bit.
 
-What bounds it on the H100: bytes (vitl 0.27 and 0.44 ms at 3.35 TB/s).
-The kernel (``csrc/resize_bilinear.cu``) has the TPU kernel's grid, one
-block per batch row and block of ``_pick_block`` output rows, and reads
-each output row's two input rows from the row taps of ``_lerp_tables`` (the
-TPU kernel's input band per row block was a VMEM tiling, not needed here);
-each thread makes 8 channels of one output pixel from four 16-byte input
-reads, so the (B, H_out, W_in, C) intermediate of the separable form never
-exists.  The input is read through its strides; the tables live on the
-device, made once per shape.
+What bounds it on the H100: bytes (vitl 0.27 and 0.44 ms at 3.35 TB/s),
+most of them the output's.  The kernel (``csrc/resize_sm90.cuh``, entry
+``csrc/resize_bilinear.cu``) follows the TPU kernel's two passes: a block
+lerps an output row's two input rows (a channel slice of them) once into a
+bf16 row in shared memory, then makes each output pixel of the slice from
+two taps of that row and writes it with 16-byte streaming stores, so the
+(B, H_out, W_in, C) intermediate of the separable form never reaches
+device memory.  Blocks are persistent, at most 3 an SM, and walk (batch,
+output row, slice) in order, so the blocks in flight share their input
+rows through L2 and one block's loads overlap another's stores.  The
+TPU kernel's row blocks (``_pick_block``) remain in the gate alone.  The
+input is read through its strides; the tables live on the device, made
+once per shape.  Its design steps: ``probes/bench_resize_sm90.py``.
 
 Differentiable as JAX's custom VJP (``_rbf_fwd`` / ``_rbf_bwd``): the
 forward is the kernel, the backward runs autograd through the plain
@@ -133,18 +137,33 @@ class _ResizeBilinearFused(torch.autograd.Function):
         return gx, None
 
 
-def _launch(x, out_hw):
-    global launches
+def prepare(x, out_hw):
+    """(x as the kernel reads it, the row/column tables on its device): x
+    keeps its strides where they suit the kernel (unit channel stride, the
+    others multiples of 8, 16-byte aligned), else is made contiguous."""
     b, h, w, c = x.shape
-    oh, ow = out_hw
     if x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3]) \
             or x.data_ptr() % 16:
         x = x.contiguous()
-    itab, ftab = _device_tables(h, w, oh, ow, x.device)
-    out = torch.empty(b, oh, ow, c, device=x.device, dtype=x.dtype)
+    return (x, *_device_tables(h, w, *out_hw, x.device))
+
+
+def c_args(x, itab, ftab, out) -> tuple:
+    """The arguments of ``vda_resize_bilinear`` before its stream (those of
+    ``vda_resize_variant`` before its keep flag), for ``prepare``'s
+    operands and out (B, OH, OW, C)."""
+    b, _, w, c = x.shape
+    return (x.data_ptr(), out.data_ptr(), itab.data_ptr(), ftab.data_ptr(),
+            b, w, out.shape[1], out.shape[2], c, *x.stride()[:3])
+
+
+def _launch(x, out_hw):
+    global launches
+    x, itab, ftab = prepare(x, out_hw)
+    out = torch.empty(x.shape[0], *out_hw, x.shape[3], device=x.device,
+                      dtype=x.dtype)
     err = _build.library().vda_resize_bilinear(
-        x.data_ptr(), out.data_ptr(), itab.data_ptr(), ftab.data_ptr(), b, oh,
-        ow, c, _pick_block(oh), *x.stride()[:3], _build.stream_ptr(x))
+        *c_args(x, itab, ftab, out), _build.stream_ptr(x))
     _build.check(err, "vda_resize_bilinear")
     launches += 1
     return out

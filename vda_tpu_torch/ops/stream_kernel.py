@@ -13,13 +13,26 @@ and head: about one operation a byte, far below the ~295 a byte at which the
 tensor cores would matter.  So it is CUDA C++ with plain fp32 FMAs, not a
 tensor-core kernel (Triton would serve as well; CUDA keeps the one build
 route of the other kernels).  The TPU kernel tiled 16 positions and masked a
-block-diagonal (16, 16 * rows) score tile for the MXU; here a block owns one
-position and a group of heads (``csrc/stream_kv_attention.cu``), copies the
-group's columns of its valid context rows and the new row into shared memory
-with 16-byte cp.async loads (every byte read once; rows that are not valid
-are not read at all), and gives each head a warp: one lane a row for the
-scores, one lane a column for the weighted sum.  The encodings, the same for
-every position, are read through the cache.
+block-diagonal (16, 16 * rows) score tile for the MXU.  The C entry point
+picks the device code by (C, heads, dtype) alone (``loop_of``, the C query
+``vda_stream_kv_loop``):
+
+* bf16 at head widths a multiple of 8 up to 128 (vitl's 128 and 32, every
+  main-path shape): the Hopper loop, ``csrc/stream_kv_sm90.cuh``.  Blocks
+  are persistent and each owns a range of heads, whose encodings (the same
+  for every position) it stages in shared memory once; a warp owns one
+  (position, head) at a time and loads a 32-row chunk of its K into
+  registers, 16 bytes a lane, before the first product, and the chunk of
+  V beside it (head widths up to 64) or after the scores (wider heads,
+  where both would spill); scores, softmax and the weighted sum run on
+  shuffles.  Its design steps: ``probes/bench_stream_sm90.py``.
+* fp32 and wider heads: the kernel of ``csrc/stream_kv_attention.cu``, a
+  block a position and a group of heads with the rows staged in shared
+  memory by 16-byte cp.async loads.
+
+Rows that are not valid are never read by either.  Launches are counted
+(``launches``) and counted by device code (``launches_by_loop``: "sm90"
+the Hopper loop, "sm80" the other).
 
 Rounding follows the TPU kernel: the encoding add rounds to the working
 dtype, scores accumulate in fp32, ``exp`` of the bf16-rounded shifted score
@@ -29,11 +42,14 @@ deferred to the output.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vda_tpu_torch.ops import _build
 
 launches = 0  # kernel launches made by ``stream_kv_attention``
+launches_by_loop = {"sm90": 0, "sm80": 0}  # the same launches by loop
 
 
 def use_kernel(t_new: int, c: int, heads: int) -> bool:
@@ -46,11 +62,28 @@ def use_kernel(t_new: int, c: int, heads: int) -> bool:
     return t_new == 1 and c % gw == 0 and gw % dh == 0 and dh % 8 == 0
 
 
+@functools.lru_cache(maxsize=None)
+def loop_of(dtype, c: int, heads: int) -> str:
+    """The device code the C entry point runs at this shape, as it reports
+    it (``vda_stream_kv_loop``): "sm90" (the Hopper loop) or "sm80"."""
+    code = _build.library().vda_stream_kv_loop(
+        c, heads, int(dtype == torch.bfloat16))
+    return "sm90" if code == 90 else "sm80"
+
+
+@functools.lru_cache(maxsize=None)
+def all_valid(rows: int, device) -> torch.Tensor:
+    """(rows,) uint8 ones on ``device``, made once: the flags of a context
+    whose every row takes part, as the ``ctx_kernel`` path's does.  The same
+    tensor for the same key; callers do not modify it."""
+    return torch.ones(rows, dtype=torch.uint8, device=device)
+
+
 def stream_kv_attention_reference(q, k_new, v_new, k_buf, v_buf, pe_k, pe_v,
                                   valid, heads: int, scale: float):
     """Plain twin: q, k_new, v_new (BHW, C); k_buf, v_buf (BHW, rows, C);
-    pe_k, pe_v (rows, C); valid (rows,) bool.  Returns (BHW, C) in q's
-    dtype, with the kernel's rounding."""
+    pe_k, pe_v (rows, C); valid (rows,) bool or uint8.  Returns (BHW, C) in
+    q's dtype, with the kernel's rounding."""
     bhw, rows, c = k_buf.shape
     dh = c // heads
     dt = q.dtype
@@ -114,8 +147,9 @@ def stream_kv_attention(q, k_new, v_new, k_buf, v_buf, pe_k, pe_v, valid,
     q, k_new, v_new: (BHW, C), the new frame's projections with its
     encoding added.  k_buf, v_buf: (BHW, rows, C) cached projections
     without encoding.  pe_k, pe_v: (rows, C) projected encoding of each
-    cached row.  valid: (rows,) bool, the rows that take part.  Returns
-    (BHW, C)."""
+    cached row.  valid: (rows,) bool or uint8, the rows that take part (a
+    contiguous uint8 tensor goes to the kernel as it is).  Returns (BHW,
+    C)."""
     global launches
     if q.device.type == "cpu":
         return stream_kv_attention_reference(q, k_new, v_new, k_buf, v_buf,
@@ -134,4 +168,5 @@ def stream_kv_attention(q, k_new, v_new, k_buf, v_buf, pe_k, pe_v, valid,
                          f"{tuple(k_buf.shape)} with {heads} heads")
     _build.check(err, "vda_stream_kv_attention")
     launches += 1
+    launches_by_loop[loop_of(q.dtype, c, heads)] += 1
     return out

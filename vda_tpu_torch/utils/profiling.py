@@ -60,12 +60,14 @@ KINDS = (
     ("K4 attention_block", ("attention_block_kernel", "TemporalK4")),
     # K7: the Hopper kernel (bf16, head width 64) and the mma.sync ones
     ("K7 attention_proj", ("attention_heads_sm90_kernel", "attention_proj_")),
-    ("K10 resize_bilinear", ("resize_bilinear_kernel",)),
+    # K10: the Hopper kernel and the one it replaced
+    ("K10 resize_bilinear", ("resize90_kernel", "resize_bilinear_kernel")),
     # K1 (K9 launches it too): the Hopper loop and the mma.sync / fp32 ones
     ("K1 attention_qkv", ("attention_sm90_kernel", "attention_qkv_")),
     ("K2 layer_norm", ("_ln_fwd",)),
     ("K5 tiny_seq", ("tiny_seq_kernel",)),
-    ("K6 stream_kv", ("stream_kv_kernel",)),
+    # K6: the Hopper loop (bf16, head widths up to 128) and the other
+    ("K6 stream_kv", ("kv_loop_kernel", "stream_kv_kernel")),
     ("copy", ("Memcpy", "Memset", "copy_kernel")),
     ("conv (cuDNN)", ("fprop", "conv", "cudnn")),
     ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass")),
