@@ -51,8 +51,10 @@ with every launch counter set to 0 just before it and read just after:
     dynamic-quant arm at (45056, 1024) @ (1024, 3072), K14's four stages
     and K6's two, the design steps and stages of K3/K4's Hopper chain at
     vitl's four temporal shapes, and the design steps of K6's Hopper loop
-    (the four stream shapes) and K10's Hopper kernel (the two tail
-    shapes), each arm against its twin;
+    (the four stream shapes), K10's Hopper kernel (the two tail shapes)
+    and K5's and K8's Hopper code (the vits window's and the first stream
+    step's K5 shapes, K8's multi-crop and 32 x 1370), each arm against its
+    twin;
   * ``host_sync``: a steady ``StreamingDepth.submit`` with the device held
     by ``torch.cuda._sleep`` (~50 ms, or three times an idle submit's host
     time if longer) returns in less host time than the sleep (vits; vitl's
@@ -97,6 +99,20 @@ asserted on the loop it should run (``stream_kernel.launches_by_loop``),
 and the loop repeats bit for bit.  K10 runs csrc/resize_sm90.cuh: its
 lines carry the old kernel's time (``old_ms``), bit-exact with the twin
 and with itself over 30 repeats.
+K5 in bf16 runs the Hopper code of csrc/tiny_seq_sm90.cuh (T >= 2: TMA
+boxes of a (sequence, head group) item into a ring of two stages, both
+products on mma.sync; T = 1: a warp per 256 columns of a position), K8 in
+bf16 at head width 64 that of csrc/segment_sm90.cuh (K1's TMA/wgmma loop
+over a host work table of query-tile passes): their lines carry the old
+kernel's time on the same values (``old_ms``, the largest |new - old|
+beside it; K8 at 32 x 1370 with K1's time too), K5's T = 1 lines an empty
+kernel's held time on the same grid (``floor_ms``); each repeats bit for
+bit over 30 calls, the fp32 cases stay on the old kernels, every bf16 K5
+launch of phases ``kernels``, ``stream`` (step 0), ``vits_window`` and
+``fused_stream`` and every bf16 K8 launch of ``kernels`` and
+``nested_block`` is asserted on "sm90" (``tiny_seq_kernel`` /
+``segment_kernel.launches_by_loop``), and phase ``probes`` runs their
+design steps (``probes.bench_short_attn_sm90``) against their twins.
 K11 and K13 run the Hopper GEMM mainloop (csrc/gemm_sm90.cuh): their lines
 carry the old mma.sync loop's time on the same values (``mma_sync_ms``,
 ``probes.bench_gemm_sm90``'s ``mma_sync`` step) and the largest |new -
@@ -155,13 +171,13 @@ KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
            "vda_tpu/ops/pallas_temporal.py:234"),
     "K4": ("cuda", "vda_tpu_torch/csrc/temporal_block.cu",
            "vda_tpu/ops/pallas_temporal.py:162"),
-    "K5": ("cuda", "vda_tpu_torch/csrc/tiny_seq_attention.cu",
+    "K5": ("cuda", "vda_tpu_torch/csrc/tiny_seq_sm90.cuh",
            "vda_tpu/ops/pallas_attention.py:517"),
     "K6": ("cuda", "vda_tpu_torch/csrc/stream_kv_sm90.cuh",
            "vda_tpu/ops/pallas_stream.py:119"),
     "K7": ("cuda", "vda_tpu_torch/csrc/attention_proj.cu",
            "vda_tpu/ops/pallas_attention.py:274"),
-    "K8": ("cuda", "vda_tpu_torch/csrc/segment_attention.cu",
+    "K8": ("cuda", "vda_tpu_torch/csrc/segment_sm90.cuh",
            "vda_tpu/ops/pallas_attention.py:641"),
     "K9": ("cuda", "vda_tpu_torch/csrc/attention_qkv.cu",
            "vda_tpu/ops/pallas_attention.py:112"),
@@ -321,6 +337,17 @@ def temporal_by_loop_ok(counts) -> bool:
         "K4": {"sm90": counts["K4"], "sm80": 0}}
 
 
+def k5_k8_by_loop_ok(counts) -> bool:
+    """Every K5 and K8 launch since the counters were reset (bf16 on every
+    path) ran the Hopper code."""
+    from vda_tpu_torch.ops import segment_kernel, tiny_seq_kernel
+
+    return (tiny_seq_kernel.launches_by_loop == {"sm90": counts["K5"],
+                                                 "sm80": 0}
+            and segment_kernel.launches_by_loop == {"sm90": counts["K8"],
+                                                    "sm80": 0})
+
+
 def gemm_by_loop_ok(counts, loops, since=None) -> bool:
     """Every K11/K13 launch counted in ``counts`` ran the Hopper GEMM loop:
     ``loops`` is ``quant.gemm_launches_by_loop`` read with ``counts``, and
@@ -352,16 +379,19 @@ def phase_kernels(model):
     results = {}
 
     def check(name, shape, kern, twin, twin_inputs_fp32, tol, reps=5,
-              cost=None, library=None, ops_dtype=None, held=False, **timed):
+              cost=None, library=None, ops_dtype=None, held=False,
+              held_timed=None, **timed):
         """cost: (bytes, operations) of the call, the operations at the peak
         rate of ``ops_dtype`` (default: the output's); library: one PyTorch
         call computing the same function, timed as a yardstick only; held:
         also time the kernel with the device held while the host enqueues
         the calls (``held_ms``, ``probes.time_held_ms``: for kernels short
         enough that their wrapper's host work sets the pace of ``ms``);
-        timed: other calls to time beside it, by name (``mma_sync`` or
-        ``old``: the code the kernel replaced on the same values, whose
-        largest difference from the kernel is printed too)."""
+        held_timed: other calls timed that way, by name (``floor``: an
+        empty kernel on the kernel's grid); timed: other calls to time
+        beside it, by name (``mma_sync`` or ``old``: the code the kernel
+        replaced on the same values, whose largest difference from the
+        kernel is printed too)."""
         got = kern()
         ref = twin(fp32=twin_inputs_fp32)
         extra = {}
@@ -384,6 +414,10 @@ def phase_kernels(model):
             from vda_tpu_torch.probes import time_held_ms
 
             res["held_ms"] = time_held_ms(kern, reps)
+        for key, f in (held_timed or {}).items():
+            from vda_tpu_torch.probes import time_held_ms
+
+            res[f"{key}_ms"] = time_held_ms(f, reps)
         if cost is not None:
             res["bound_ms"], res["bound_by"] = bound(*cost,
                                                      ops_dtype or got.dtype)
@@ -480,22 +514,53 @@ def phase_kernels(model):
 
     # K5 at the shapes of the streaming first step (vitl, T = 1) and of the
     # vits window (T = 32), 8 heads; q, k, v are column slices of one fused
-    # projection, as the model hands them over
+    # projection, as the model hands them over.  bf16 on the Hopper code,
+    # beside the kernel it replaced on the same values (the probe's "old"
+    # step: old_ms, max_abs_vs_old) and, at T = 1, an empty kernel on the
+    # same grid (floor_ms); repeated bit for bit; fp32 on the old kernel
+    from vda_tpu_torch.probes import bench_short_attn_sm90 as bsa
+
     def k5_case(bd, t, c, dtype, heads=8):
         qkv = torch.randn(bd, t, 3 * c, device="cuda", generator=g).to(dtype)
         q, k, v = qkv.split(c, dim=-1)
         dh = c // heads
         qh, kh, vh = (x.reshape(bd, t, heads, dh).transpose(1, 2)
                       for x in (q, k, v))
-        check("K5", (bd, t, c),
-              lambda: k5.tiny_seq_attention(q, k, v, heads, dh ** -0.5),
+        loop = "sm90" if dtype == bf else "sm80"
+        if k5.loop_of(dtype, t, c, heads) != loop:
+            raise AssertionError(f"K5 at {(bd, t, c)} {dtype} is not on the "
+                                 f"{loop} code")
+        ins = dict(kernel="K5", shape=(bd, t, c), q=q, k=k, v=v, heads=heads,
+                   scale=dh ** -0.5)
+        out = torch.zeros(bd, t, c, device="cuda", dtype=dtype)
+        timed = {} if dtype != bf else dict(
+            old=lambda: bsa.variant("old", ins, out))
+        held = {} if dtype != bf or t != 1 else dict(
+            floor=lambda: bsa.variant("floor", ins, out))
+
+        def kern():
+            return k5.tiny_seq_attention(q, k, v, heads, dh ** -0.5)
+
+        loops0 = dict(k5.launches_by_loop)
+        check("K5", (bd, t, c), kern,
               lambda fp32: k5.tiny_seq_attention_reference(
                   *((x.float() for x in (q, k, v)) if fp32 else (q, k, v)),
                   heads, dh ** -0.5), True,
               TOL["K5" if dtype == bf else "fp32"],
               cost=(4 * bd * t * c * qkv.element_size(), 4 * bd * t * t * c),
               library=lambda: F.scaled_dot_product_attention(
-                  qh, kh, vh, scale=dh ** -0.5), held=True)
+                  qh, kh, vh, scale=dh ** -0.5), held=True, held_timed=held,
+              **timed)
+        if dtype == bf:  # no atomics, one order of the sums: the same bits
+            first = kern()
+            if not all(torch.equal(kern(), first) for _ in range(30)):
+                raise AssertionError(f"K5 at {(bd, t, c)} differs between "
+                                     "repeats")
+        torch.cuda.synchronize()
+        moved = {key: v - loops0[key] for key, v in k5.launches_by_loop.items()}
+        if moved[loop] == 0 or any(moved[key] for key in moved if key != loop):
+            raise AssertionError(f"K5 launches by loop {moved}, all expected "
+                                 f"on {loop}")
 
     for shape in ((5476, 32, 64), (1369, 32, 64), (1369, 32, 192),
                   (1369, 1, 1024), (361, 1, 1024), (1369, 1, 256),
@@ -634,9 +699,20 @@ def phase_kernels(model):
                   .unflatten(-1, (h, d)).transpose(1, 2)
                   for t in (q8, k8_, v8)]
         sq = sum(n * n for n in lengths)
-        check("K8", (len(lengths), total, c),
-              lambda: k8.segment_attention(q8, k8_, v8, h, d ** -0.5,
-                                           lengths),
+        loop = "sm90" if dtype == bf else "sm80"
+        if k8.loop_of(dtype, d) != loop:
+            raise AssertionError(f"K8 {dtype} is not on the {loop} code")
+        ins = dict(kernel="K8", shape=tuple(lengths), q=q8, k=k8_, v=v8,
+                   heads=h, scale=d ** -0.5)
+        out = torch.zeros(total, c, device="cuda", dtype=dtype)
+        if dtype == bf:  # the mma.sync loop it replaced, on the same values
+            timed["old"] = lambda qkv: bsa.variant("old", ins, out)
+
+        def kern():
+            return k8.segment_attention(q8, k8_, v8, h, d ** -0.5, lengths)
+
+        loops0 = dict(k8.launches_by_loop)
+        check("K8", (len(lengths), total, c), kern,
               lambda fp32: k8.segment_attention_reference(
                   *((t.float() for t in (q8, k8_, v8)) if fp32
                     else (q8, k8_, v8)), h, d ** -0.5, lengths), True, tol,
@@ -644,6 +720,16 @@ def phase_kernels(model):
               library=lambda: F.scaled_dot_product_attention(
                   *nested, scale=d ** -0.5),
               **{k: (lambda f=f: f(qkv)) for k, f in timed.items()})
+        if dtype == bf:  # no atomics, one order of the sums: the same bits
+            first = kern()
+            if not all(torch.equal(kern(), first) for _ in range(30)):
+                raise AssertionError(f"K8 over {len(lengths)} segments "
+                                     "differs between repeats")
+        torch.cuda.synchronize()
+        moved = {key: v - loops0[key] for key, v in k8.launches_by_loop.items()}
+        if moved[loop] == 0 or any(moved[key] for key in moved if key != loop):
+            raise AssertionError(f"K8 launches by loop {moved}, all expected "
+                                 f"on {loop}")
 
     n_img, (n_g, len_g), (n_l, len_l) = MULTI_CROP
     multi_crop = [len_g] * (n_img * n_g) + [len_l] * (n_img * n_l)
@@ -971,11 +1057,13 @@ def phase_stream(model, frames):
                     "K6": 8 if i and name == "ctx" else 0}
             k6_loops = dict(stream_kernel.launches_by_loop)
             if counts != want or not by_loop_ok(counts) or \
-                    k6_loops != {"sm90": want["K6"], "sm80": 0}:
+                    k6_loops != {"sm90": want["K6"], "sm80": 0} or \
+                    not k5_k8_by_loop_ok(counts):
                 raise AssertionError(f"stream {name} step {i}: launches "
                                      f"{counts} != {want}, or a K1 launch "
                                      "missed the Hopper loop, or a K6 "
-                                     f"launch its own ({k6_loops})")
+                                     f"launch its own ({k6_loops}), or a K5 "
+                                     "launch the Hopper code")
             total = {k: total[k] + counts[k] for k in total}
             d = depth[name]
             if d.shape != (SIZE, SIZE) or not torch.isfinite(d).all():
@@ -1039,10 +1127,11 @@ def phase_vits_window(frames):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     if counts != PER_VITS_WINDOW or not by_loop_ok(counts) \
-            or not temporal_by_loop_ok(counts):
+            or not temporal_by_loop_ok(counts) or not k5_k8_by_loop_ok(counts):
         raise AssertionError(f"vits launches {counts} != {PER_VITS_WINDOW}, "
                              "or a K1 launch missed the Hopper loop, or a K3 "
-                             "launch the Hopper chain")
+                             "launch the Hopper chain, or a K5 launch the "
+                             "Hopper code")
     window_ms = time_ms(lambda: vt.forward(model, x), reps=3)
     plain_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
                        reps=2)
@@ -1140,10 +1229,12 @@ def phase_fused_stream(model, frames):
                 counts = ops.launch_counts()
                 want = {**PER_STEP, "K1": 0, "K7": 24,
                         "K5": 8 if i == 0 else 0}
-                if counts != want or not k7_by_loop_ok(counts):
+                if counts != want or not k7_by_loop_ok(counts) \
+                        or not k5_k8_by_loop_ok(counts):
                     raise AssertionError(f"fused stream step {i}: launches "
                                          f"{counts} != {want}, or a K7 "
-                                         "launch missed the Hopper kernel")
+                                         "launch missed the Hopper kernel, "
+                                         "or a K5 launch the Hopper code")
                 total = {k: total[k] + counts[k] for k in total}
         r = rel(depth["kv"], depth["fused"])[1]
         worst = max(worst, r)
@@ -1222,6 +1313,7 @@ def phase_nested_block(model):
         got = block_apply_nested(blk, x_list, cfg)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        loops_ok = k5_k8_by_loop_ok(counts)
         per_sample = [block_apply(blk, xi, cfg, kernels=False) for xi in x_list]
         plain = block_apply_nested(blk, x_list, cfg, impl="plain")
         ms = time_ms(lambda: block_apply_nested(blk, x_list, cfg), 5)
@@ -1235,8 +1327,9 @@ def phase_nested_block(model):
          rows=sum(x.shape[0] * x.shape[1] for x in x_list), launches=counts,
          max_rel_vs_per_sample=rel_ps, max_rel_vs_plain=rel_plain, ms=ms,
          plain_ms=plain_ms, per_sample_ms=per_sample_ms)
-    if counts != {**ZERO, "K8": 1, "K2": 2}:
-        raise AssertionError(f"nested_block launches {counts}")
+    if counts != {**ZERO, "K8": 1, "K2": 2} or not loops_ok:
+        raise AssertionError(f"nested_block launches {counts}, or the K8 "
+                             "launch missed the Hopper code")
     if not all(torch.isfinite(o).all() for o in got) \
             or not (rel_ps < 1e-2 and rel_plain < 1e-2):
         raise AssertionError(f"nested_block vs per-sample {rel_ps}, vs "
@@ -1481,26 +1574,31 @@ def phase_probes():
     variant at (32, 1370, 3072), K13 (and K11's dynamic-quant arm) at
     (45056, 1024) @ (1024, 3072), K14's four stages with K6's stages, the
     design steps and stages of K3/K4's Hopper chain, and the design steps
-    of K6's Hopper loop and K10's Hopper kernel at their main-path shapes.
-    Returns the launches of the runs."""
+    of K6's Hopper loop and K10's Hopper kernel at their main-path shapes,
+    and those of K5's and K8's Hopper code (with K1 timed beside K8 at 32 x
+    1370).  Returns the launches of the runs."""
     from vda_tpu_torch import ops
     from vda_tpu_torch.ops import quant, stream_kernel
     from vda_tpu_torch.probes import (bench_attn_variants, bench_int8,
-                                      bench_resize_sm90, bench_stream_sm90,
-                                      bench_temporal_sm90,
+                                      bench_resize_sm90,
+                                      bench_short_attn_sm90,
+                                      bench_stream_sm90, bench_temporal_sm90,
                                       probe_stream_kernel)
 
     reps, stream_reps = 5, 20
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     bt, bs, br = bench_temporal_sm90, bench_stream_sm90, bench_resize_sm90
+    bsa = bench_short_attn_sm90
     bt.launches = bt.stage_launches = bs.launches = br.launches = 0
+    bsa.launches = 0
     rows = {"attn_variants": bench_attn_variants.run(reps=reps),
             "int8": bench_int8.run(reps=reps),
             "stream": probe_stream_kernel.run(reps=stream_reps),
             "temporal_sm90": bt.run(reps=reps),
             "stream_sm90": bs.run(reps=reps),
-            "resize_sm90": br.run(reps=reps)}
+            "resize_sm90": br.run(reps=reps),
+            "short_attn_sm90": bsa.run(reps=reps)}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     # K3/K4's design steps: each step and stage a warm-up, ``reps`` timed
@@ -1514,10 +1612,16 @@ def phase_probes():
     # and one checked call; K10's: one timing and one checked call
     want_bs = len(bs.VARIANTS) * len(bs.SHAPES) * (2 * reps + 3)
     want_br = len(br.VARIANTS) * len(br.SHAPES) * (reps + 2)
-    got = (bt.launches, bt.stage_launches, bs.launches, br.launches)
-    if got != (*want_bt, want_bs, want_br):
+    # K5's and K8's: one held timing (a warm-up and ``reps``) and one
+    # checked call a step and shape
+    want_bsa = (sum(len(bsa.k5_steps(t)) for _, t, _ in bsa.K5_SHAPES.values())
+                + len(bsa.K8_SHAPES) * (len(bsa.K8_VARIANTS)
+                                        + len(bsa.K8_TABLES))) * (reps + 2)
+    got = (bt.launches, bt.stage_launches, bs.launches, br.launches,
+           bsa.launches)
+    if got != (*want_bt, want_bs, want_br, want_bsa):
         raise AssertionError(f"design-step probe launches {got} != "
-                             f"{(*want_bt, want_bs, want_br)}")
+                             f"{(*want_bt, want_bs, want_br, want_bsa)}")
     loops = dict(quant.gemm_launches_by_loop)
     k12_loops = dict(bench_attn_variants.launches_by_loop)
     k6_loops = dict(stream_kernel.launches_by_loop)
@@ -1531,7 +1635,9 @@ def phase_probes():
     n_variants = len(bench_attn_variants.VARIANTS)
     # K6: K14's two stages, and the wrapper's host timing (a warm-up and
     # ``HOST_REPS`` calls a shape) in K6's design-step probe
-    want = {**ZERO, "K12": n_variants * (reps + 2), "K13": 2 * (reps + 2),
+    # K1: timed beside K8 at 32 x 1370 (a warm-up and ``reps``)
+    want = {**ZERO, "K1": reps + 1,
+            "K12": n_variants * (reps + 2), "K13": 2 * (reps + 2),
             "K11": reps + 2, "K14": len(probe_stream_kernel.STAGES)
             * (stream_reps + 2),
             "K6": 2 * (stream_reps + 2) + len(bs.SHAPES) * (bs.HOST_REPS + 1)}

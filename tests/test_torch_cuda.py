@@ -855,6 +855,197 @@ def test_streaming_cache_kinds_agree(gen):
 
 
 # ---------------------------------------------------------------------------
+# K5 and K8 on their Hopper code
+# ---------------------------------------------------------------------------
+
+def _k5_operands(gen, bd, t, c, fused, dtype=BF):
+    if fused:  # column slices of one (BD, T, 3C) projection
+        return torch.randn(bd, t, 3 * c, device="cuda",
+                           generator=gen).to(dtype).split(c, dim=-1)
+    return tuple(torch.randn(bd, t, c, device="cuda", generator=gen)
+                 .to(dtype) for _ in range(3))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("bd", [1, 7, 1369])
+@pytest.mark.parametrize("dh", [8, 16, 24, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 2, 8, 31, 32, 33, 64])
+def test_k5_hopper_code(gen, t, dh, bd, fused):
+    """K5 in bf16 on the Hopper code (T >= 2 the mma path, T = 1 the row
+    path), 8 heads, every launch asserted on "sm90", against the bf16
+    twin."""
+    heads = 8
+    c = heads * dh
+    q, k, v = _k5_operands(gen, bd, t, c, fused)
+    scale = dh ** -0.5
+    assert tiny_seq_kernel.loop_of(BF, t, c, heads) == "sm90"
+    got = _on_loop(lambda: tiny_seq_kernel.launches_by_loop, "sm90",
+                   lambda: _launched("K5", lambda: (
+                       tiny_seq_kernel.tiny_seq_attention(q, k, v, heads,
+                                                          scale))))
+    ref = tiny_seq_kernel.tiny_seq_attention_reference(q, k, v, heads, scale)
+    assert got.dtype == BF and got.shape == (bd, t, c)
+    assert _rel(ref, got) < TOL[BF]
+
+
+@pytest.mark.parametrize("t,c,heads,loop", [
+    (32, 64, 8, "sm90"), (1, 1024, 8, "sm90"), (1, 192, 8, "sm90"),
+    (32, 1536, 8, "sm80"), (32, 1024, 1, "sm80"), (7, 80, 2, "sm80"),
+    (1, 4096, 8, "sm80")])
+def test_k5_routes(gen, t, c, heads, loop):
+    """The shapes the Hopper code refuses (head widths over 128 or outside
+    its instantiations at T >= 2, C over 2048 at T = 1) and fp32 run the
+    old kernel, counted as such."""
+    q, k, v = _k5_operands(gen, 5, t, c, True)
+    for dtype in (BF, F32):
+        want = loop if dtype == BF else "sm80"
+        x = [y.to(dtype) for y in (q, k, v)] if dtype != BF else (q, k, v)
+        if dtype != BF:  # one fused layout again
+            x = torch.cat(x, -1).split(c, dim=-1)
+        assert tiny_seq_kernel.loop_of(dtype, t, c, heads) == want
+        got = _on_loop(lambda: tiny_seq_kernel.launches_by_loop, want,
+                       lambda: tiny_seq_kernel.tiny_seq_attention(
+                           *x, heads, (c // heads) ** -0.5))
+        ref = tiny_seq_kernel.tiny_seq_attention_reference(
+            *(y.float() for y in x), heads, (c // heads) ** -0.5)
+        assert _rel(ref, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("t,dh", [(1, 128), (1, 32), (1, 24), (32, 8),
+                                  (32, 24)])
+def test_k5_nan_where_the_twin_has_it(gen, t, dh):
+    """An infinite value planted in q makes its head's rows NaN in the
+    kernel exactly where the twin has NaN (at T = 1 the one-key softmax is
+    computed, not skipped), and every other value agrees."""
+    heads, bd = 8, 37
+    c = heads * dh
+    q, k, v = _k5_operands(gen, bd, t, c, True)
+    q[3, 0, 5] = float("inf")
+    q[9, t - 1, c - 1] = float("-inf")
+    got = tiny_seq_kernel.tiny_seq_attention(q, k, v, heads, dh ** -0.5)
+    ref = tiny_seq_kernel.tiny_seq_attention_reference(q, k, v, heads,
+                                                       dh ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isnan(ref).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    ok = ~torch.isnan(ref)
+    err = (got.float() - ref.float())[ok].abs().max()
+    assert float(err / ref.float()[ok].abs().max()) < TOL[BF]
+
+
+@pytest.mark.parametrize("bd,t,c", [(5476, 32, 64), (1369, 32, 192),
+                                    (1369, 1, 1024), (5476, 1, 256)])
+def test_k5_repeats_bit_for_bit(gen, bd, t, c):
+    q, k, v = _k5_operands(gen, bd, t, c, True)
+    scale = (c // 8) ** -0.5
+    first = tiny_seq_kernel.tiny_seq_attention(q, k, v, 8, scale)
+    for _ in range(30):
+        assert torch.equal(tiny_seq_kernel.tiny_seq_attention(q, k, v, 8,
+                                                              scale), first)
+
+
+K8_TABLE_LENGTHS = [(1,), (63, 64, 65), (257,) * 3 + (50,) * 9,
+                    (1370,) * 2,
+                    (5, 300, 1, 64, 64, 2, 129, 33, 33, 33, 70, 1, 1, 200)]
+
+
+@pytest.mark.parametrize("heads,dh,loop", [(4, 64, "sm90"), (16, 64, "sm90"),
+                                           (4, 16, "sm80"),
+                                           (2, 128, "sm80")])
+@pytest.mark.parametrize("lengths", K8_TABLE_LENGTHS, ids=str)
+def test_k8_hopper_code(gen, lengths, heads, dh, loop):
+    """K8 in bf16 against the per-segment twin in fp32, each launch on the
+    loop its head width takes: the Hopper code at 64, the mma.sync loop at
+    16 and 128."""
+    total, c = sum(lengths), heads * dh
+    qkv = torch.randn(total, 3 * c, device="cuda", generator=gen).to(BF)
+    q, k, v = qkv.split(c, dim=-1)
+    assert segment_kernel.loop_of(BF, dh) == loop
+    got = _on_loop(lambda: segment_kernel.launches_by_loop, loop,
+                   lambda: _launched("K8", lambda: (
+                       segment_kernel.segment_attention(
+                           q, k, v, heads, dh ** -0.5, lengths))))
+    ref = segment_kernel.segment_attention_reference(
+        q.float(), k.float(), v.float(), heads, dh ** -0.5, lengths)
+    assert got.dtype == BF and got.shape == (total, c)
+    assert _rel(ref, got) < TOL[BF]
+
+
+def test_k8_repeats_bit_for_bit(gen):
+    lengths = (257,) * 64 + (50,) * 256
+    qkv = torch.randn(sum(lengths), 3 * 1024, device="cuda",
+                      generator=gen).to(BF)
+    q, k, v = qkv.split(1024, dim=-1)
+    first = segment_kernel.segment_attention(q, k, v, 16, 0.125, lengths)
+    for _ in range(30):
+        assert torch.equal(segment_kernel.segment_attention(
+            q, k, v, 16, 0.125, lengths), first)
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+def test_k5_k8_design_steps(gen, kernel):
+    """Each step of probes/bench_short_attn_sm90.py against what it
+    writes: the twin within 3.9e-3 of its scale, or an output left at zero;
+    the steps that do not take a shape refuse it."""
+    from vda_tpu_torch.probes import bench_short_attn_sm90 as bsa
+
+    shapes = ([(37, 32, 64), (20, 32, 192), (40, 1, 1024), (33, 1, 256),
+               (9, 7, 64)] if kernel == "K5"
+              else [(257, 257, 50, 50, 50), (1370, 3, 64)])
+    steps = (bsa.K5_VARIANTS if kernel == "K5"
+             else [*bsa.K8_VARIANTS, *bsa.K8_TABLES])
+    for shape in shapes:
+        ins = bsa.inputs(gen, kernel, shape)
+        for step in steps:
+            # K5's steps other than old and sm90 run at the main paths' T
+            # (32 and 1), some on the mma path alone
+            refused = kernel == "K5" and (
+                (step in bsa.K5_MMA_ONLY and shape[1] == 1)
+                or (step not in ("old", "sm90") and shape[1] not in (1, 32)))
+            if refused:
+                with pytest.raises(RuntimeError, match="variant"):
+                    bsa.variant(step, ins)
+                continue
+            got = bsa.variant(step, ins)
+            torch.cuda.synchronize()
+            want = bsa.twin(step, ins)
+            if step in bsa.PARTS:
+                assert torch.equal(got, want), (step, shape)
+            else:
+                assert _rel(want, got) < TOL[BF], (step, shape)
+
+
+def test_k5_k8_hopper_launchers_refuse(gen):
+    """The C launchers refuse what the Hopper code does not take (the
+    entry points route such shapes to the old kernels; the variant entry
+    points reach the launchers directly) and raise through the wrappers."""
+    from vda_tpu_torch.ops import _build
+
+    lib = _build.library()
+    x = torch.zeros(4, 2, 3 * 1536, device="cuda", dtype=BF)
+    st = _build.stream_ptr(x)
+    # K5 sm90 at head width 192 (T 2)
+    assert lib.vda_tiny_seq_variant(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 4, 2, 1536,
+        8, x.stride(0), x.stride(1), 0.1, 0, 1, st) == _build.INVALID_VALUE
+    # K8 sm90 at head width 128
+    q = torch.zeros(10, 256, device="cuda", dtype=BF)
+    items, span = segment_kernel._device_items((10,), q.device)
+    tiles = segment_kernel._device_table((10,), q.device)
+    assert lib.vda_segment_variant(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+        tiles.data_ptr(), tiles.shape[0], items.data_ptr(), items.shape[0],
+        span, 10, 2, 128, 256, 0.1, 0, 1, st) == _build.INVALID_VALUE
+    with pytest.raises(ValueError):  # 65 frames, bf16
+        y = torch.zeros(2, 65, 64, device="cuda", dtype=BF)
+        tiny_seq_kernel.tiny_seq_attention(y, y, y, 8, 0.3)
+    with pytest.raises(ValueError):  # K8 head width 136
+        w = torch.zeros(12, 272, device="cuda", dtype=BF)
+        segment_kernel.segment_attention(w, w, w, 2, 0.1, (5, 7))
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # the training slice: K8, the K2/K10 gradients, a train step
 # ---------------------------------------------------------------------------
 

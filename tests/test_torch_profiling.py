@@ -49,6 +49,20 @@ from vda_tpu_torch.utils import profiling
      "K4 attention_block"),
     ("void vda::(anonymous namespace)::tiny_seq_kernel<__nv_bfloat16, 32>"
      "(...)", "K5 tiny_seq"),
+    # K5's and K8's Hopper code
+    ("void vda::tiny90::tiny90_kernel<8, 32, (vda::tiny90::Mode)0>"
+     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16 *, ...)",
+     "K5 tiny_seq"),
+    ("void vda::tiny90::tiny1_kernel<1, (vda::tiny90::Mode)0>(const "
+     "__nv_bfloat16 *, ...)", "K5 tiny_seq"),
+    ("void vda::seg90::segment90_kernel<vda::seg90::Config<64, 6, "
+     "(vda::seg90::Mode)0> >(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "__nv_bfloat16 *, const int4 *, int, int, float, int)",
+     "K8 segment_attention"),
+    ("void vda::(anonymous namespace)::segment_bf16_kernel<64>(...)",
+     "K8 segment_attention"),
+    ("void vda::(anonymous namespace)::segment_f32_kernel<16>(...)",
+     "K8 segment_attention"),
     ("void vda::(anonymous namespace)::stream_kv_kernel<float>(...)",
      "K6 stream_kv"),
     ("void vda::stream90::kv_loop_kernel<16, 0>(vda::stream90::Args)",

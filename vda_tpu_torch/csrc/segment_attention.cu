@@ -8,7 +8,11 @@
 // rows, gathered them, held a whole (cap, cap) fp32 score tile per head in
 // VMEM with a segment-id mask, and scattered the result back.  None of that
 // layout is kept: this is a varlen flash attention over the segments'
-// offsets.  The host turns the static lengths into a table of query tiles,
+// offsets, by one of two codes chosen by head width and dtype
+// (vda_segment_loop): bf16 at head width 64 (every main path) the Hopper
+// code of segment_sm90.cuh over the host's work table of query-tile
+// passes; fp32 and other widths the mma.sync loop below.  For
+// the latter the host turns the static lengths into a table of query tiles,
 // one int4 {segment start, segment length, first query row, 0} per 64-row
 // tile of each segment, copied to the card once per shape; one block of 4
 // warps per (tile, head) runs K1's loop (flash_attention.cuh) with the
@@ -25,6 +29,7 @@
 // tensor-core work, never of the bytes.
 
 #include "flash_attention.cuh"
+#include "segment_sm90.cuh"
 
 namespace vda {
 namespace {
@@ -104,33 +109,56 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 }  // namespace
-}  // namespace vda
 
-// q, k, v: row 0, 16-byte aligned; row t at x + t * row_stride (a multiple
-// of 8 elements, at least H*D).  tiles: n_tiles int4 {start, length, q0, 0}
-// on the device, every start + length within the rows.  out: contiguous
-// (total, H*D).
-extern "C" int vda_segment_attention(const void* q, const void* k,
-                                     const void* v, void* out,
-                                     const void* tiles, int n_tiles,
-                                     int heads, int d, long long row_stride,
-                                     float scale, int is_bf16, void* stream) {
+cudaError_t segment_sm80(const void* q, const void* k, const void* v,
+                         void* out, const void* tiles, int n_tiles, int heads,
+                         int d, long long row_stride, float scale, bool bf,
+                         cudaStream_t st) {
   if (n_tiles <= 0 || heads <= 0 || row_stride < 1LL * heads * d ||
       row_stride % 8)
     return cudaErrorInvalidValue;
   const size_t rs = static_cast<size_t>(row_stride);
-  const bool bf = is_bf16 != 0;
-  const auto st = static_cast<cudaStream_t>(stream);
   const auto* tl = static_cast<const int4*>(tiles);
-  switch (vda::flash::padded_width(d)) {
-    case 16: return vda::launch<16>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
-    case 32: return vda::launch<32>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
-    case 48: return vda::launch<48>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
-    case 64: return vda::launch<64>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
-    case 80: return vda::launch<80>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
-    case 96: return vda::launch<96>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
-    case 112: return vda::launch<112>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
-    case 128: return vda::launch<128>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
+  switch (flash::padded_width(d)) {
+    case 16: return launch<16>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
+    case 32: return launch<32>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
+    case 48: return launch<48>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
+    case 64: return launch<64>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
+    case 80: return launch<80>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
+    case 96: return launch<96>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
+    case 112: return launch<112>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
+    case 128: return launch<128>(q, k, v, out, tl, n_tiles, heads, d, rs, scale, bf, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace vda
+
+// The code vda_segment_attention runs at this head width: 90 (the Hopper
+// code of segment_sm90.cuh: bf16 at head width 64) or 80 (the loop above).
+extern "C" int vda_segment_loop(int d, int is_bf16) {
+  return is_bf16 && d == vda::seg90::D ? 90 : 80;
+}
+
+// q, k, v: row 0, 16-byte aligned; row t at x + t * row_stride (a multiple
+// of 8 elements, at least H*D).  tiles: n_tiles int4 {start, length, q0, 0}
+// (the loop above's table); items: n_items records of 16 ints (the Hopper
+// code's work table, ops/segment_kernel.py work_table) whose longest key
+// span is max_span; both on the device, every row they name within the
+// `total` rows.  out: contiguous (total,
+// H*D).
+extern "C" int vda_segment_attention(const void* q, const void* k,
+                                     const void* v, void* out,
+                                     const void* tiles, int n_tiles,
+                                     const void* items, int n_items,
+                                     int max_span, int total, int heads,
+                                     int d, long long row_stride, float scale,
+                                     int is_bf16, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (vda_segment_loop(d, is_bf16) == 90)
+    return vda::seg90::launch_for_span(
+        q, k, v, out, items, n_items, max_span, total, heads,
+        static_cast<size_t>(row_stride), scale, 0, st);
+  return vda::segment_sm80(q, k, v, out, tiles, n_tiles, heads, d,
+                           row_stride, scale, is_bf16 != 0, st);
 }

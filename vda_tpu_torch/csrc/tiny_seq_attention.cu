@@ -9,8 +9,14 @@
 // (_tiny_seq_kernel).  The TPU kernel filled the 128x128 MXU by masking a
 // block-diagonal (512 x 512) score tile over 16 sequences at once.  Here the
 // bound is bytes: every input byte is needed once and the products are few
-// (4 T^2 C a sequence, ~16 operations a byte at T = 32 and dh = 8).  So one
-// block owns one sequence and a group of heads, copies that group's columns
+// (4 T^2 C a sequence, ~16 operations a byte at T = 32 and dh = 8).
+//
+// Two codes, chosen by (T, C, heads, dtype) alone (vda_tiny_seq_loop):
+//  * 90: bf16 at the shapes tiny_seq_sm90.cuh takes (every main path): its
+//    TMA ring and tensor-core products (T >= 2), a warp per 256 columns of
+//    a position (T = 1);
+//  * 80: fp32 and the rest: the kernel below, in which one
+//    block owns one sequence and a group of heads, copies that group's columns
 // of the sequence into shared memory once (16-byte coalesced loads, turned
 // into fp32 there so no lane converts a value another lane converts too),
 // and gives each head a warp and each query row a lane: the lane keeps its
@@ -24,7 +30,7 @@
 // to the sum, exp of the bf16-rounded shifted score rounded to bf16 (bf16
 // only), an fp32 row sum of those values, and one division at the output.
 
-#include "common.cuh"
+#include "tiny_seq_sm90.cuh"
 
 namespace vda {
 namespace {
@@ -236,7 +242,26 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 }
 
 }  // namespace
+
+// The kernel above at any shape the entry point admits, bf16 or fp32.
+cudaError_t tiny_seq_sm80(const void* q, const void* k, const void* v,
+                          void* o, int bd, int t, int c, int heads,
+                          long long seq_stride, long long row_stride,
+                          float scale, bool is_bf16, cudaStream_t st) {
+  if (is_bf16)
+    return dispatch<__nv_bfloat16>(q, k, v, o, bd, t, c, heads, seq_stride,
+                                   row_stride, scale, st);
+  return dispatch<float>(q, k, v, o, bd, t, c, heads, seq_stride, row_stride,
+                         scale, st);
+}
+
 }  // namespace vda
+
+// The code vda_tiny_seq_attention runs at this shape: 90 (the Hopper code of
+// tiny_seq_sm90.cuh) or 80 (the kernel above).
+extern "C" int vda_tiny_seq_loop(int t, int c, int heads, int is_bf16) {
+  return is_bf16 && vda::tiny90::takes(t, c, heads) ? 90 : 80;
+}
 
 extern "C" int vda_tiny_seq_attention(const void* q, const void* k,
                                       const void* v, void* o, int bd, int t,
@@ -248,9 +273,9 @@ extern "C" int vda_tiny_seq_attention(const void* q, const void* k,
       (c / heads) % 8 || seq_stride % align || row_stride % align)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return vda::dispatch<__nv_bfloat16>(q, k, v, o, bd, t, c, heads,
-                                        seq_stride, row_stride, scale, st);
-  return vda::dispatch<float>(q, k, v, o, bd, t, c, heads, seq_stride,
-                              row_stride, scale, st);
+  if (vda_tiny_seq_loop(t, c, heads, is_bf16) == 90)
+    return vda::tiny90::launch<vda::tiny90::Mode::kFull>(
+        q, k, v, o, bd, t, c, heads, seq_stride, row_stride, scale, 0, st);
+  return vda::tiny_seq_sm80(q, k, v, o, bd, t, c, heads, seq_stride,
+                            row_stride, scale, is_bf16 != 0, st);
 }

@@ -49,12 +49,16 @@ def reset_launch_counts() -> None:
                                                 0)
     resize_kernel.launches = 0
     segment_kernel.launches = 0
+    segment_kernel.launches_by_loop = dict.fromkeys(
+        segment_kernel.launches_by_loop, 0)
     temporal_kernel.launches_block = 0
     temporal_kernel.launches_attn = 0
     temporal_kernel.launches_by_loop = {
         k: dict.fromkeys(v, 0)
         for k, v in temporal_kernel.launches_by_loop.items()}
     tiny_seq_kernel.launches = 0
+    tiny_seq_kernel.launches_by_loop = dict.fromkeys(
+        tiny_seq_kernel.launches_by_loop, 0)
     stream_kernel.launches = 0
     stream_kernel.launches_by_loop = dict.fromkeys(
         stream_kernel.launches_by_loop, 0)

@@ -78,6 +78,11 @@ _SIGNATURES = {
     # stream
     "vda_tiny_seq_attention": [_P] * 4 + [_I] * 4 + [_I64] * 2
     + [_F, _I, _P],
+    # T, C, heads, is_bf16 -> 90 (the Hopper code) or 80
+    "vda_tiny_seq_loop": [_I] * 4,
+    # the operands of vda_tiny_seq_attention, scale, keep, variant, stream
+    "vda_tiny_seq_variant": [_P] * 4 + [_I] * 4 + [_I64] * 2
+    + [_F, _I, _I, _P],
     # q, k_new, v_new, k_buf, v_buf, pe_k, pe_v, valid, out, BHW, rows, C,
     # heads, scale, is_bf16, stream
     "vda_stream_kv_attention": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
@@ -85,9 +90,16 @@ _SIGNATURES = {
     "vda_stream_kv_loop": [_I] * 3,
     # the operands of vda_stream_kv_attention, scale, keep, variant, stream
     "vda_stream_kv_variant": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P],
-    # q, k, v, out, tiles, n_tiles, heads, D, row_stride, scale, is_bf16,
-    # stream
-    "vda_segment_attention": [_P] * 5 + [_I] * 3 + [_I64, _F, _I, _P],
+    # q, k, v, out, tiles, n_tiles, items, n_items, max_span, total, heads,
+    # D, row_stride, scale, is_bf16, stream
+    "vda_segment_attention": [_P] * 5 + [_I, _P] + [_I] * 5
+    + [_I64, _F, _I, _P],
+    # D, is_bf16 -> 90 (the Hopper code) or 80
+    "vda_segment_loop": [_I, _I],
+    # the operands of vda_segment_attention up to row_stride, scale, keep,
+    # variant, stream
+    "vda_segment_variant": [_P] * 5 + [_I, _P] + [_I] * 5
+    + [_I64, _F, _I, _I, _P],
     # xq, wt, sx, sw, b, out, M, N, K, out_bf16, stream
     "vda_int8_linear": [_P] * 6 + [_I] * 4 + [_P],
     # -> 90: the loop vda_int8_linear and vda_matmul_probe run (Hopper)

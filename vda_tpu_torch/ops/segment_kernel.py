@@ -17,13 +17,29 @@ elements read and written, 0.072 ms at vitl's 29,248 rows in bf16), where
 the operations of segments of 257 and 50 rows are few; a long segment is
 bound by operations, like K1.  The TPU kernel bin-packed segments into
 128-aligned bins, gathered them and held a (cap, cap) score tile per head in
-VMEM.  Here (``csrc/segment_attention.cu``) the static lengths become a
-table of 64-row query tiles ({segment start, length, first row}), made once
-per shape on the host and copied to the card once; one block per (tile,
-head) runs K1's flash loop (``csrc/flash_attention.cuh``) with the segment's
-start as its row base and its length as its row and key count.  Nothing is
-gathered, padded or scattered: the K/V tile that straddles a segment's end is
-zero-filled and masked, query rows past it are never stored.
+VMEM.  The C entry point picks the device code by head width and dtype
+(``loop_of``, the C query ``vda_segment_loop``):
+
+* bf16 at head width 64 (vitl's, every main-path shape): the Hopper code
+  of ``csrc/segment_sm90.cuh``, K1's TMA/wgmma loop over a work table
+  (``work_table``, made once per length tuple and copied to the card
+  once): an item is a pass of up to three 64-row query tiles, one a
+  consumer warpgroup, over one key span, either three tiles of one long
+  segment or one tile each of up to three consecutive short segments whose
+  keys lie side by side (each consumer masks the keys outside its own
+  segment); a persistent grid walks (item, head) works with the next
+  work's loads in flight; key tiles of 64 rows where the longest span is
+  at most 1024 keys, else 128.  Its design steps:
+  ``probes/bench_short_attn_sm90``.
+* fp32 and other head widths: the mma.sync loop (``csrc/segment_attention
+  .cu`` + ``flash_attention.cuh``) over a table of 64-row query tiles
+  ({segment start, length, first row}, ``tile_table``), one block per
+  (tile, head).
+
+Nothing is gathered, padded or scattered: a K/V tile that straddles a
+segment's end is masked, query rows past it are never stored.  Launches are
+counted (``launches``) and counted by device code (``launches_by_loop``:
+"sm90" the Hopper code, "sm80" the other).
 
 Forward only, as in JAX (``pallas_call`` has no VJP rule there): the wrapper
 raises if autograd would need a gradient.
@@ -40,7 +56,10 @@ from vda_tpu_torch.ops import _build
 from vda_tpu_torch.ops.attention import attention_plain
 
 launches = 0  # kernel launches made by ``segment_attention``
-TILE = 64     # query rows a block takes (csrc/flash_attention.cuh BQ)
+launches_by_loop = {"sm90": 0, "sm80": 0}  # the same launches by loop
+TILE = 64     # query rows a tile (csrc/flash_attention.cuh BQ, a wgmma's M)
+CONSUMERS = 3  # query tiles an item of the work table holds
+MIX_SPAN = 640  # longest key span of an item holding several segments
 
 
 def kernel_supported(dh: int) -> bool:
@@ -70,8 +89,67 @@ def tile_table(lengths: tuple) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
+def work_table(lengths: tuple, mix_span: int = MIX_SPAN) -> np.ndarray:
+    """The Hopper code's items (csrc/segment_sm90.cuh): (n_items, 16) int32
+    rows {k0, nk, own, n_own} (the key span: rows k0 .. k0 + nk - 1; own 1
+    where every segment of the item fits one 64-row tile, which the kernel
+    then loads at each segment's start instead of tiling the span: n_own
+    tiles, one a consumer), then
+    for each of the three consumers {q0, qn, ks, ke}: its query tile (rows
+    q0 .. q0 + qn - 1, qn 0 for none) and its segment's keys (rows ks ..
+    ke - 1).
+    The 64-row query tiles of all segments, in row order, go three to an
+    item; a tile of another segment than the item's last joins it only
+    while the item's key span stays within ``mix_span`` rows (so short
+    segments share items, and the tiles of a 257-row segment fill the
+    consumers its last item would leave idle, but a long segment's keys are
+    never streamed past consumers that do not need them)."""
+    tiles = []  # (q0, qn, ks, ke) of every query tile, in row order
+    start = 0
+    for n in lengths:
+        tiles.extend((start + q0, min(TILE, n - q0), start, start + n)
+                     for q0 in range(0, n, TILE))
+        start += n
+    rows = []
+    i = 0
+    while i < len(tiles):
+        group = [tiles[i]]
+        i += 1
+        while len(group) < CONSUMERS and i < len(tiles):
+            nxt = tiles[i]
+            if nxt[2] != group[-1][2] and nxt[3] - group[0][2] > mix_span:
+                break
+            group.append(nxt)
+            i += 1
+        k0 = group[0][2]
+        # segments of one tile each: a key tile at each one's start
+        own = all(ke - ks <= TILE for _, _, ks, ke in group)
+        rows.append((k0, group[-1][3] - k0, int(own), len(group) * own,
+                     *sum(group, ()),
+                     *(0, 0, 0, 0) * (CONSUMERS - len(group))))
+    return np.asarray(rows, np.int32).reshape(-1, 4 + 4 * CONSUMERS)
+
+
+@functools.lru_cache(maxsize=64)
 def _device_table(lengths: tuple, device) -> torch.Tensor:
     return torch.from_numpy(tile_table(lengths)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_items(lengths: tuple, device,
+                  mix_span: int = MIX_SPAN) -> tuple[torch.Tensor, int]:
+    """The work table on ``device`` and its longest key span."""
+    table = work_table(lengths, mix_span)
+    return torch.from_numpy(table).to(device), int(table[:, 1].max())
+
+
+@functools.lru_cache(maxsize=None)
+def loop_of(dtype, d: int) -> str:
+    """The device code the C entry point runs at head width ``d``, as it
+    reports it (``vda_segment_loop``): "sm90" (the Hopper code) or
+    "sm80"."""
+    code = _build.library().vda_segment_loop(d, int(dtype == torch.bfloat16))
+    return "sm90" if code == 90 else "sm80"
 
 
 def segment_attention_reference(q, k, v, heads: int, scale: float,
@@ -119,12 +197,16 @@ def segment_attention(q, k, v, heads: int, scale: float, segment_lengths):
     lengths = _lengths(segment_lengths, total)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(f"{name} has no backward (as in JAX)")
+    d = hd // heads
     tiles = _device_table(lengths, q.device)
+    items, span = _device_items(lengths, q.device)
     out = torch.empty(total, hd, device=q.device, dtype=q.dtype)
     err = _build.library().vda_segment_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        tiles.data_ptr(), tiles.shape[0], heads, hd // heads, rs,
-        float(scale), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+        tiles.data_ptr(), tiles.shape[0], items.data_ptr(), items.shape[0],
+        span, total, heads, d, rs, float(scale),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(err, "vda_segment_attention")
     launches += 1
+    launches_by_loop[loop_of(q.dtype, d)] += 1
     return out

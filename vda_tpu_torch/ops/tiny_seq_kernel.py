@@ -10,16 +10,29 @@ modules of odd widths (vits mm0 at C=192, mm2/mm3 at C=64).
 
 What bounds it on the H100: bytes.  At the vits mm3 shape (5476, 32, 64) in
 bf16 it reads q, k, v and writes o, 4 * 5476 * 32 * 64 * 2 B = 90 MB, while
-its 4 * BD * T^2 * C operations are 1.4 GFLOP; at T = 1 it is a copy of v.
-The TPU kernel masked a block-diagonal (512 x 512) score tile to fill the
-MXU; here a block owns one sequence and a group of heads
-(``csrc/tiny_seq_attention.cu``), stages that sequence's columns once in
-shared memory (one read of every input byte, 16-byte coalesced loads, q/k/v
-read in place at their column offsets through a row stride, so the fused qkv
-projection is never split into copies), gives each head a warp and each
-query row a lane, keeps that row's T scores in registers, and writes the
-output through shared memory in whole rows.  Wide heads (dh > 128) are
-walked 64 columns at a time.
+its 4 * BD * T^2 * C operations are 1.4 GFLOP.  The TPU kernel masked a
+block-diagonal (512 x 512) score tile to fill the MXU.  The C entry point
+picks the device code by (T, C, heads, dtype) alone (``loop_of``, the C
+query ``vda_tiny_seq_loop``):
+
+* bf16 at the main paths' shapes (``csrc/tiny_seq_sm90.cuh``): for T >= 2
+  a persistent grid whose blocks take (sequence, head group) items, each
+  item's q, k and v brought by TMA (boxes of 64 columns by T rows, read in
+  place through the caller's strides, so the fused projection is never
+  split into copies) into a ring of two shared-memory stages, the next
+  item's bytes in flight under this one's products; both products on the
+  tensor cores (mma.sync), the softmax in registers, the output through a
+  shared-memory tile in whole rows.  For T = 1 a warp a position, 16-byte
+  loads, the one-key softmax computed per head (an infinite or NaN score
+  gives NaN, as in JAX).  Its design steps: ``probes/bench_short_attn_sm90``.
+* fp32 and the shapes the Hopper code refuses (head widths over 128, head
+  groups that do not fill 64 columns): the kernel of
+  ``csrc/tiny_seq_attention.cu``, a block a sequence and a head group, the
+  columns staged in shared memory as fp32, a warp a head and a lane a query
+  row.
+
+Launches are counted (``launches``) and counted by device code
+(``launches_by_loop``: "sm90" the Hopper code, "sm80" the other).
 
 Rounding follows the TPU kernel: scores accumulate in fp32 and are scaled,
 ``exp`` of the max-shifted score is taken on bf16-rounded input and rounded
@@ -29,11 +42,14 @@ normalisation is deferred to the output.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vda_tpu_torch.ops import _build
 
 launches = 0  # kernel launches made by ``tiny_seq_attention``
+launches_by_loop = {"sm90": 0, "sm80": 0}  # the same launches by loop
 
 MAX_T = 64  # frames a sequence may hold (the JAX gate)
 
@@ -43,6 +59,15 @@ def use_kernel(t_q: int, t_full: int, dh: int) -> bool:
     ``_temporal_attention``): queries cover the whole sequence, at most 64
     frames, head width a multiple of 8.  The kernel takes every such shape."""
     return t_q == t_full and t_full <= MAX_T and dh % 8 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def loop_of(dtype, t: int, c: int, heads: int) -> str:
+    """The device code the C entry point runs at this shape, as it reports
+    it (``vda_tiny_seq_loop``): "sm90" (the Hopper code) or "sm80"."""
+    code = _build.library().vda_tiny_seq_loop(
+        t, c, heads, int(dtype == torch.bfloat16))
+    return "sm90" if code == 90 else "sm80"
 
 
 def tiny_seq_attention_reference(q, k, v, heads: int, scale: float):
@@ -105,4 +130,5 @@ def tiny_seq_attention(q, k, v, heads: int, scale: float):
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(err, "vda_tiny_seq_attention")
     launches += 1
+    launches_by_loop[loop_of(q.dtype, t, c, heads)] += 1
     return out

@@ -5,9 +5,10 @@ package's ``scripts/bench_int8.py`` + ``scripts/bench_int8_pallas.py``
 (``probe_stream_kernel``: K14), and the design steps of K1/K9's Hopper loop
 (``bench_attn_sm90``), K7's Hopper kernel (``bench_attn_proj_sm90``),
 K11/K13's Hopper GEMM loop (``bench_gemm_sm90``), K3/K4's Hopper code
-(``bench_temporal_sm90``), K6's Hopper loop (``bench_stream_sm90``) and
-K10's Hopper kernel (``bench_resize_sm90``), which have no JAX
-counterpart::
+(``bench_temporal_sm90``), K6's Hopper loop (``bench_stream_sm90``),
+K10's Hopper kernel (``bench_resize_sm90``) and K5's and K8's Hopper code
+(``bench_short_attn_sm90``; ``time_short_attn_paths`` times the paths that
+launch them against another checkout), which have no JAX counterpart::
 
     python -m vda_tpu_torch.probes.bench_int8
     python -m vda_tpu_torch.probes.bench_attn_variants [variant ...]
@@ -18,6 +19,8 @@ counterpart::
     python -m vda_tpu_torch.probes.bench_temporal_sm90 [step ...]
     python -m vda_tpu_torch.probes.bench_stream_sm90 [step ...]
     python -m vda_tpu_torch.probes.bench_resize_sm90 [step ...]
+    python -m vda_tpu_torch.probes.bench_short_attn_sm90 [step ...]
+    python vda_tpu_torch/probes/time_short_attn_paths.py --against DIR
 
 Each holds every kernel arm against its plain twin and exits non-zero on a
 disagreement, or when an arm outlives its time budget.  Times are CUDA

@@ -62,10 +62,14 @@ KINDS = (
     ("K7 attention_proj", ("attention_heads_sm90_kernel", "attention_proj_")),
     # K10: the Hopper kernel and the one it replaced
     ("K10 resize_bilinear", ("resize90_kernel", "resize_bilinear_kernel")),
+    # K8: the Hopper code (bf16, head width 64) and the mma.sync / fp32 ones
+    ("K8 segment_attention", ("segment90_kernel", "segment_bf16_kernel",
+                              "segment_f32_kernel")),
     # K1 (K9 launches it too): the Hopper loop and the mma.sync / fp32 ones
     ("K1 attention_qkv", ("attention_sm90_kernel", "attention_qkv_")),
     ("K2 layer_norm", ("_ln_fwd",)),
-    ("K5 tiny_seq", ("tiny_seq_kernel",)),
+    # K5: the Hopper code (T >= 2 and T = 1) and the kernel it replaced
+    ("K5 tiny_seq", ("tiny90_kernel", "tiny1_kernel", "tiny_seq_kernel")),
     # K6: the Hopper loop (bf16, head widths up to 128) and the other
     ("K6 stream_kv", ("kv_loop_kernel", "stream_kv_kernel")),
     ("copy", ("Memcpy", "Memset", "copy_kernel")),
