@@ -11,6 +11,12 @@ function (and the gradients of the two differentiable kernels, K2 and K10,
 against autograd through their plain forms), then drives each main path
 with every launch counter set to 0 just before it and read just after:
 
+  * ``weights``: vitl through ``load_model_params(random_init=True)``
+    (the smoke run's seeded weights, cast to bf16 once by JAX's rule)
+    against the same weights uncast: a window and the first 4 stream steps
+    bit-identical, then each model's parameter casts, kernels and host ms
+    of a steady stream step and its window's peak memory; the window,
+    stream and fused paths below run the cast model;
   * ``main_path``: offline windowed ``infer_video_depth`` on a vitl model
     with seeded random weights over a 54-frame 518x518 video (three
     windows), then one window's forward against the all-plain path;
@@ -113,6 +119,16 @@ launch of phases ``kernels``, ``stream`` (step 0), ``vits_window`` and
 ``nested_block`` is asserted on "sm90" (``tiny_seq_kernel`` /
 ``segment_kernel.launches_by_loop``), and phase ``probes`` runs their
 design steps (``probes.bench_short_attn_sm90``) against their twins.
+K14 runs the Hopper kernel of csrc/stream_probe_sm90.cuh (a cluster of up
+to 8 blocks a (group, head), both products on mma.sync, the row maxima
+exchanged over distributed shared memory): its lines, one a stage, carry
+the held time (``held_ms``) beside, held the same way, the first build on
+the same values (``old_ms``), the kernel's loads alone (``loads_ms``) and
+an empty kernel on its grid and cluster shape (``floor_ms``), and the
+stage's own bound (only the operands its features read); each stage
+repeats bit for bit over 30 calls, and every
+K14 launch of phases ``kernels`` and ``probes`` is asserted on "sm90"
+(``probe_stream_kernel.launches_by_loop``).
 K11 and K13 run the Hopper GEMM mainloop (csrc/gemm_sm90.cuh): their lines
 carry the old mma.sync loop's time on the same values (``mma_sync_ms``,
 ``probes.bench_gemm_sm90``'s ``mma_sync`` step) and the largest |new -
@@ -128,12 +144,14 @@ lines are the kernels line, the card's nvidia-smi name and power limit, and
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -389,16 +407,17 @@ def phase_kernels(model):
         enough that their wrapper's host work sets the pace of ``ms``);
         held_timed: other calls timed that way, by name (``floor``: an
         empty kernel on the kernel's grid); timed: other calls to time
-        beside it, by name (``mma_sync`` or ``old``: the code the kernel
-        replaced on the same values, whose largest difference from the
-        kernel is printed too)."""
+        beside it, by name.  In either, ``mma_sync`` or ``old`` is the code
+        the kernel replaced on the same values, whose largest difference
+        from the kernel is printed too."""
         got = kern()
         ref = twin(fp32=twin_inputs_fp32)
         extra = {}
+        others = {**timed, **(held_timed or {})}
         for key in ("mma_sync", "old"):  # the code the kernel replaced
-            if key in timed:
+            if key in others:
                 extra[f"max_abs_vs_{key}"] = float(
-                    (got.float() - timed[key]().float()).abs().max())
+                    (got.float() - others[key]().float()).abs().max())
         torch.cuda.synchronize()
         err, r = rel(ref, got)
         if not torch.isfinite(got).all():
@@ -868,18 +887,58 @@ def phase_kernels(model):
         raise AssertionError(f"K11/K13 launches off the Hopper GEMM loop: "
                              f"{k11.gemm_launches_by_loop} since "
                              f"{gemm_loops0}, counts {gemm_counts}")
-    # K14 with all features at the probe script's shape (32 positions, 43
-    # rows, C 256, 8 heads, groups of 16): far from any bound; printed
-    # anyway
+    # K14 at the probe script's shape (32 positions, 43 rows, C 256, 8
+    # heads, groups of 16), each stage (all features first: the kernels
+    # line's numbers) on the Hopper kernel; held, the kernel (held_ms)
+    # beside the first build on the same values (old_ms, max_abs_vs_old),
+    # its loads alone (loads_ms) and an empty kernel on its grid and
+    # cluster shape (floor_ms); each stage repeated bit for bit.  A stage's
+    # bound counts the operands its features read, every cached row once
+    # (all of them are read in every stage): q, kb, vb and out; kn and vn
+    # with NEW, pe with PE, valid with MASK
     inputs = k14.make_inputs()
-    feats = k14.STAGES["new"]
     bhw, rows, c, grp = k14.BHW, k14.ROWS, k14.C, k14.G
-    check("K14", (bhw, rows, c), lambda: k14.simple_kernel(feats, inputs),
-          lambda fp32: k14.simple_kernel_reference(
-              feats, inputs, out_dtype=torch.float32 if fp32
-              else torch.bfloat16), True, TOL["K14"], reps=20,
-          cost=((4 * bhw * c + 2 * bhw * rows * c + rows * c) * 2 + rows,
-                bhw * (4 * grp * rows * c + 4 * grp * c)))
+    if k14.loop_of(rows, c, k14.HEADS, grp) != "sm90":
+        raise AssertionError("K14 at the probe's shape is not on the Hopper "
+                             "kernel")
+    k14_out = torch.empty_like(inputs[0])
+    for stage in ("new", "dot2", "mask", "pe"):
+        feats = k14.STAGES[stage]
+
+        def k14_kern(feats=feats):
+            return k14.simple_kernel(feats, inputs)
+
+        def k14_step(step, feats=feats):
+            return k14.variant(step, feats, inputs, k14_out)
+
+        new, pe_on = "new" in feats, "pe" in feats
+        loops0 = dict(k14.launches_by_loop)
+        res = check("K14", (bhw, rows, c), k14_kern,
+                    lambda fp32, feats=feats: k14.simple_kernel_reference(
+                        feats, inputs, out_dtype=torch.float32 if fp32
+                        else torch.bfloat16), True, TOL["K14"], reps=20,
+                    cost=(2 * (2 * bhw * c + 2 * bhw * rows * c
+                               + new * 2 * bhw * c + pe_on * rows * c)
+                          + ("mask" in feats) * rows,
+                          bhw * 4 * grp * c * (rows + new)),
+                    held=True, held_timed={
+                        "floor": lambda: k14_step("floor"),
+                        "loads": lambda: k14_step("loads"),
+                        "old": lambda: k14_step("old")})
+        first = k14_kern()
+        if not all(torch.equal(k14_kern(), first) for _ in range(30)):
+            raise AssertionError(f"K14 stage {stage} differs between repeats")
+        torch.cuda.synchronize()
+        moved = {k: v - loops0[k] for k, v in k14.launches_by_loop.items()}
+        if moved["sm80"]:
+            raise AssertionError(f"K14 stage {stage} left the Hopper kernel: "
+                                 f"{moved}")
+        emit(phase="k14_stage", stage=stage, features=list(feats),
+             held_ms=res["held_ms"], floor_ms=res["floor_ms"],
+             held_minus_floor_us=1e3 * (res["held_ms"] - res["floor_ms"]),
+             old_ms=res["old_ms"], loads_ms=res["loads_ms"],
+             bound_ms=res["bound_ms"], ms=res["ms"], max_rel=res["max_rel"],
+             launches_by_loop=moved, repeats_bit_for_bit=30)
 
     # fp32 at small shapes
     qkv = torch.randn(2, 200, 3 * 2 * 64, device="cuda", generator=g)
@@ -964,6 +1023,113 @@ def grad_cases():
     case("K10", (*x.shape, 296, 296),
          lambda t: k10.resize_bilinear_fused(t, (296, 296)),
          lambda t: resize_bilinear(t, (296, 296), kernel=False), (x,))
+
+
+def copies_bytes(model) -> int:
+    """Bytes of the working-dtype copies the kernels' wrappers keep of the
+    model's tensors (``ops.layers.cast_once``, the temporal kernels' fused
+    q/k/v weights)."""
+    from vda_tpu_torch.ops import layers, temporal_kernel
+
+    n = sum(layers._casts[t][1].nbytes for t in
+            [*model.parameters(), *model.buffers()] if t in layers._casts)
+    return n + sum(temporal_kernel._wqkv_cache[m][1].nbytes
+                   for m in model.modules() if m in temporal_kernel._wqkv_cache)
+
+
+def phase_weights(model):
+    """The inference weights' path: vitl through ``load_model_params(
+    random_init=True)`` (``init_random`` from a generator seeded 0, as
+    ``model``, then every weight cast to bf16 once by JAX's rule) against
+    ``model`` (the same weights in fp32, cast at use).  A 1x32x518x518
+    window and the first 4 stream steps are the same bits; one steady
+    stream step of each: its parameter casts (``ParamCasts``: a launch
+    each), its kernels and ``aten::_to_copy`` ops (torch.profiler) and its
+    host ms (median of 6 steps in turns); each model's window peak memory
+    (weights + kept copies + the forward's peak over what was resident).
+    Returns the cast model."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import vda_tpu_torch as vt
+    from vda_tpu_torch.probes.param_casts import ParamCasts
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    _, cast = vt.load_model_params("vitl", random_init=True)
+    cast.requires_grad_(False)
+    models = {"uncast": model, "cast": cast}
+    w = "pretrained.blocks.0.attn.qkv.weight"
+    if cast.state_dict()[w].dtype != torch.bfloat16 or not torch.equal(
+            cast.state_dict()[w], model.state_dict()[w].to(torch.bfloat16)):
+        raise AssertionError("the loader's vitl is not the smoke run's "
+                             "weights cast to bf16")
+    frames = (np.random.default_rng(0).random((32, SIZE, SIZE, 3))
+              * 255).astype(np.uint8)
+    x = preprocess_frames(torch.from_numpy(frames[None]).cuda(),
+                          (SIZE, SIZE), dtype=torch.bfloat16)
+    res = {name: {} for name in models}
+    outs = {}
+    for name, m in models.items():
+        vt.forward(m, x)  # warm-up: the kept copies made
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[name] = vt.forward(m, x)
+        torch.cuda.synchronize()
+        over = torch.cuda.max_memory_allocated() - resident
+        weights = sum(t.nbytes for t in [*m.parameters(), *m.buffers()])
+        copies = copies_bytes(m)
+        res[name].update(weights_bytes=weights, copies_bytes=copies,
+                         window_peak_over_resident=over,
+                         window_peak_bytes=weights + copies + over)
+    for name in ("uncast", "cast", "cast", "uncast"):
+        res[name].setdefault("window_ms_in_turns", []).append(
+            time_ms(lambda: vt.forward(models[name], x), reps=3))
+    if not torch.equal(outs["uncast"], outs["cast"]):
+        raise AssertionError("the cast model's window differs from the "
+                             "uncast model's")
+    streams = {name: vt.StreamingDepth(m) for name, m in models.items()}
+    for i, f in enumerate(frames[:4]):
+        d = {name: st.submit(f) for name, st in streams.items()}
+        if not torch.equal(d["uncast"], d["cast"]):
+            raise AssertionError(f"stream step {i}: the cast model differs "
+                                 "from the uncast model")
+    host, step = ({name: [] for name in streams} for _ in range(2))
+    for f in frames[4:10]:  # steady steps, in turns
+        for name, st in streams.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.submit(f)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            host[name].append(1e3 * (t1 - t0))
+            step[name].append(1e3 * (time.perf_counter() - t0))
+    for name, st in streams.items():
+        with ParamCasts(models[name]) as casts:
+            st.submit(frames[10])
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st.submit(frames[11])
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        res[name].update(
+            step_param_casts=casts.count,
+            step_kernels=sum(e.count for e in ka
+                             if e.device_type.name == "CUDA"),
+            step_to_copy_ops=sum(e.count for e in ka
+                                 if e.key == "aten::_to_copy"),
+            step_host_ms=float(np.median(host[name])),
+            step_ms=float(np.median(step[name])),
+            step_host_ms_all=host[name])
+    emit(phase="weights", window_bit_identical=True,
+         stream_steps_bit_identical=4, **res)
+    if res["cast"]["step_param_casts"] or not res["uncast"][
+            "step_param_casts"]:
+        raise AssertionError(f"parameter casts of a steady step: cast "
+                             f"{res['cast']['step_param_casts']}, uncast "
+                             f"{res['uncast']['step_param_casts']}")
+    del streams
+    return cast
 
 
 def phase_main_path(model):
@@ -1115,8 +1281,7 @@ def phase_vits_window(frames):
     from vda_tpu_torch import ops
     from vda_tpu_torch.utils.transform import preprocess_frames
 
-    model = vt.init_random(vt.get_config("vits"),
-                           torch.Generator(device="cuda").manual_seed(0))
+    _, model = vt.load_model_params("vits", random_init=True)
     model.requires_grad_(False)
     x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
                           (SIZE, SIZE), dtype=torch.bfloat16)
@@ -1625,11 +1790,13 @@ def phase_probes():
     loops = dict(quant.gemm_launches_by_loop)
     k12_loops = dict(bench_attn_variants.launches_by_loop)
     k6_loops = dict(stream_kernel.launches_by_loop)
+    k14_loops = dict(probe_stream_kernel.launches_by_loop)
     emit(phase="probes", launches=counts, gemm_launches_by_loop=loops,
          k12_launches_by_loop=k12_loops, k6_launches_by_loop=k6_loops,
-         **rows)
-    # each arm: a warm-up and ``reps`` timed calls, and one checked call;
-    # at head width 64 every K12 variant but mma_sync on the Hopper loop;
+         k14_launches_by_loop=k14_loops, **rows)
+    # each arm: a warm-up and ``reps`` timed calls, and one checked call
+    # (K14's stages a held timing more); at head width 64 every K12 variant
+    # but mma_sync on the Hopper loop; every K14 launch on the Hopper kernel;
     # K14's K6 stages (bf16, 43 rows) and the wrapper's host timing on K6's
     # Hopper loop
     n_variants = len(bench_attn_variants.VARIANTS)
@@ -1639,15 +1806,17 @@ def phase_probes():
     want = {**ZERO, "K1": reps + 1,
             "K12": n_variants * (reps + 2), "K13": 2 * (reps + 2),
             "K11": reps + 2, "K14": len(probe_stream_kernel.STAGES)
-            * (stream_reps + 2),
+            * (2 * stream_reps + 3),
             "K6": 2 * (stream_reps + 2) + len(bs.SHAPES) * (bs.HOST_REPS + 1)}
     want_k12 = {"sm90": (n_variants - 1) * (reps + 2), "sm80": reps + 2}
     if counts != want or not gemm_by_loop_ok(counts, loops) \
             or k12_loops != want_k12 \
-            or k6_loops != {"sm90": want["K6"], "sm80": 0}:
+            or k6_loops != {"sm90": want["K6"], "sm80": 0} \
+            or k14_loops != {"sm90": want["K14"], "sm80": 0}:
         raise AssertionError(f"probes launches {counts} != {want}, GEMM by "
                              f"loop {loops}, K12 by loop {k12_loops} != "
-                             f"{want_k12}, K6 by loop {k6_loops}")
+                             f"{want_k12}, K6 by loop {k6_loops}, K14 by "
+                             f"loop {k14_loops}")
     bad = [r for rs in rows.values() for r in rs if not r.get("ok", True)]
     if bad:
         raise AssertionError(f"probe arms disagree with their twins: {bad}")
@@ -1716,8 +1885,7 @@ def phase_host_sync(model, frames):
     import vda_tpu_torch as vt
     from vda_tpu_torch.utils.transform import preprocess_frames
 
-    vits = vt.init_random(vt.get_config("vits"),
-                          torch.Generator(device="cuda").manual_seed(0))
+    _, vits = vt.load_model_params("vits", random_init=True)
     vits.requires_grad_(False)
     held = {}
     streams = {}
@@ -1758,22 +1926,37 @@ def main() -> int:
     torch.cuda.set_device(0)
     phase_env()
     phase_build()
-    model = vt.init_random(vt.get_config("vitl"),
-                           torch.Generator(device="cuda").manual_seed(0),
-                           device="cuda").requires_grad_(False)
+
+    def fp32_vitl():  # the smoke run's vitl weights, seed 0, in fp32
+        return vt.init_random(vt.get_config("vitl"),
+                              torch.Generator(device="cuda").manual_seed(0),
+                              device="cuda").requires_grad_(False)
+
+    model = fp32_vitl()
     results = phase_kernels(model)
-    window, frames = phase_main_path(model)
-    phase_cross_check(model, frames)
-    stream = phase_stream(model, frames[:N_STREAM])
+    # the window, stream and fused phases run the weights cast once, as the
+    # JAX benchmark runs them; the fp32 model is freed first, so that the
+    # main path's peak memory counts the cast weights alone, and made again
+    # for the nested block and W8A8; the train phase builds its own
+    cast = phase_weights(model)
+    gone = weakref.ref(model)
+    del model
+    gc.collect()
+    if gone() is not None:
+        raise AssertionError("the fp32 vitl outlived its phases")
+    window, frames = phase_main_path(cast)
+    phase_cross_check(cast, frames)
+    stream = phase_stream(cast, frames[:N_STREAM])
     vits = phase_vits_window(frames)
-    fused = phase_fused_window(model, frames)
-    fused_stream = phase_fused_stream(model, frames[:N_FUSED_STREAM])
+    fused = phase_fused_window(cast, frames)
+    fused_stream = phase_fused_stream(cast, frames[:N_FUSED_STREAM])
     cross = phase_cross_attention()
+    model = fp32_vitl()
     nested = phase_nested_block(model)
     train = phase_train()
     int8 = phase_int8(model)
     probes = phase_probes()
-    phase_host_sync(model, frames)
+    phase_host_sync(cast, frames)
     paths = (window, stream, vits, fused, fused_stream, cross, nested, train,
              int8, probes)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}

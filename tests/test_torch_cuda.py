@@ -1385,19 +1385,156 @@ def test_k12_full_is_k1_and_refusals(gen):
 @pytest.mark.parametrize("stage", ["dot2", "mask", "pe", "new"])
 def test_k14_stream_probe_stages(gen, stage):
     """Each stage at the script's shape and at a wider one (C 1024, 16
-    heads of 64, groups of 8), against the twin's unrounded output."""
+    heads of 64, groups of 8), against the twin's unrounded output, on the
+    Hopper kernel; also the first build (``variant("old")``) at the same
+    values."""
     from vda_tpu_torch.probes import probe_stream_kernel as k14
 
     feats = k14.STAGES[stage]
     for bhw, c, heads, group in ((32, 256, 8, 16), (40, 1024, 16, 8)):
         inputs = k14.make_inputs(bhw, c)
-        got = _launched("K14", lambda: k14.simple_kernel(
-            feats, inputs, heads=heads, group=group))
+        assert k14.loop_of(k14.ROWS, c, heads, group) == "sm90"
+        got = _on_loop(lambda: k14.launches_by_loop, "sm90", lambda: _launched(
+            "K14", lambda: k14.simple_kernel(feats, inputs, heads=heads,
+                                             group=group)))
         ref = k14.simple_kernel_reference(feats, inputs, heads=heads,
                                           group=group, out_dtype=F32)
         assert _rel(ref, got) < TOL[BF]
+        old = k14.variant("old", feats, inputs, torch.empty_like(got),
+                          heads=heads, group=group)
+        assert _rel(ref, old) < TOL[BF]
     with pytest.raises(ValueError):  # positions not a multiple of the group
         k14.simple_kernel(feats, k14.make_inputs(24, 256))
+
+
+@pytest.mark.parametrize("stage", ["dot2", "mask", "pe", "new"])
+@pytest.mark.parametrize("case", ["group4", "none_valid", "dh8", "dh128",
+                                  "rows1", "rows200"])
+def test_k14_hopper_kernel_shapes(gen, stage, case):
+    """The Hopper kernel beyond the probe's shapes: a group of 4, ``valid``
+    all false (every cached score -1e30: the twin's uniform average), head
+    widths 8 and 128, one cached row, 200 cached rows (a cluster of 8
+    blocks of many chunks each)."""
+    from vda_tpu_torch.probes import probe_stream_kernel as k14
+
+    feats = k14.STAGES[stage]
+    bhw, c, heads, group = {"group4": (32, 256, 8, 4),
+                            "none_valid": (32, 256, 8, 16),
+                            "dh8": (32, 64, 8, 16),
+                            "dh128": (16, 256, 2, 8),
+                            "rows1": (32, 256, 8, 16),
+                            "rows200": (16, 256, 8, 16)}[case]
+    q, kn, vn, kb, vb, pe, valid = k14.make_inputs(bhw, c)
+    if case == "none_valid":
+        valid = torch.zeros_like(valid)
+    if case in ("rows1", "rows200"):
+        rows = 1 if case == "rows1" else 200
+        g2 = torch.Generator(device="cuda").manual_seed(1)
+        kb, vb = (torch.randn(bhw, rows, c, device="cuda", generator=g2)
+                  .to(BF) for _ in range(2))
+        pe = (torch.randn(rows, c, device="cuda", generator=g2) * 0.1).to(BF)
+        valid = torch.rand(rows, device="cuda", generator=g2) < 0.7
+    inputs = (q, kn, vn, kb, vb, pe, valid)
+    assert k14.loop_of(kb.shape[1], c, heads, group) == "sm90"
+    got = _on_loop(lambda: k14.launches_by_loop, "sm90",
+                   lambda: k14.simple_kernel(feats, inputs, heads=heads,
+                                             group=group))
+    ref = k14.simple_kernel_reference(feats, inputs, heads=heads,
+                                      group=group, out_dtype=F32)
+    assert torch.isfinite(got).all()
+    assert _rel(ref, got) < TOL[BF]
+
+
+@pytest.mark.parametrize("stage", ["dot2", "mask", "pe", "new"])
+def test_k14_repeats_bit_for_bit(gen, stage):
+    """No atomics: the cluster's sums are read in rank order, so 30 calls
+    give the same bits."""
+    from vda_tpu_torch.probes import probe_stream_kernel as k14
+
+    feats = k14.STAGES[stage]
+    inputs = k14.make_inputs()
+    first = k14.simple_kernel(feats, inputs)
+    assert all(torch.equal(k14.simple_kernel(feats, inputs), first)
+               for _ in range(30))
+
+
+def test_k14_routes_what_the_hopper_kernel_refuses(gen):
+    """Groups over 16 and heads over 128 wide run the first build (counted
+    "sm80"); the design's steps refuse them; a uint8 ``valid`` is taken as
+    a bool one; the steps run at the probe's shape."""
+    from vda_tpu_torch.probes import probe_stream_kernel as k14
+
+    feats = k14.STAGES["new"]
+    for bhw, c, heads, group in ((32, 256, 8, 32), (16, 272, 1, 8)):
+        inputs = k14.make_inputs(bhw, c)
+        assert k14.loop_of(k14.ROWS, c, heads, group) == "sm80"
+        got = _on_loop(lambda: k14.launches_by_loop, "sm80",
+                       lambda: k14.simple_kernel(feats, inputs, heads=heads,
+                                                 group=group))
+        ref = k14.simple_kernel_reference(feats, inputs, heads=heads,
+                                          group=group, out_dtype=F32)
+        assert _rel(ref, got) < TOL[BF]
+        for step in ("sm90", "loads", "floor"):
+            with pytest.raises(ValueError):
+                k14.variant(step, feats, inputs, torch.empty_like(got),
+                            heads=heads, group=group)
+    inputs = k14.make_inputs()
+    as_u8 = (*inputs[:6], inputs[6].to(torch.uint8))
+    assert torch.equal(k14.simple_kernel(feats, as_u8),
+                       k14.simple_kernel(feats, inputs))
+    with pytest.raises(ValueError):  # valid of another length
+        k14.simple_kernel(feats, (*inputs[:6], inputs[6][:-1]))
+    out = torch.empty_like(inputs[0])
+    for step in ("sm90", "loads", "floor"):  # the design's steps
+        k14.variant(step, feats, inputs, out)
+    torch.cuda.synchronize()
+    assert torch.equal(k14.variant("sm90", feats, inputs, out),
+                       k14.simple_kernel(feats, inputs))
+
+
+def _vits_models(gen):
+    """The vits model from ``load_model_params`` (seeded init, one
+    generator seed) cast to bf16 once, and the same weights uncast."""
+    from vda_tpu_torch.utils.loader import load_model_params
+
+    models = [load_model_params(
+        "vits", random_init=True, cast_bf16=cast,
+        generator=torch.Generator(device="cuda").manual_seed(3))[1]
+        .requires_grad_(False) for cast in (True, False)]
+    assert models[0].pretrained.blocks[0].attn.qkv.weight.dtype == BF
+    assert models[1].pretrained.blocks[0].attn.qkv.weight.dtype == F32
+    return models
+
+
+def test_loader_cast_window_is_bit_identical_at_518(gen):
+    """At 518 (a 37 x 37 grid: ``pos_embed`` not interpolated) a weight
+    cast once equals a weight cast at use, so the window is the same bits."""
+    cast, uncast = _vits_models(gen)
+    frames = (np.random.default_rng(6).random((1, 8, 518, 518, 3))
+              .astype(np.float32))
+    x = torch.from_numpy(frames).cuda().to(BF)
+    assert torch.equal(vt.forward(cast, x), vt.forward(uncast, x))
+
+
+def test_loader_cast_stream_is_bit_identical_and_casts_nothing(gen):
+    """The first 4 stream steps of the cast and uncast models at 518 are the
+    same bits; the cast model's steady step casts no parameter (each would
+    be a launch), the uncast model's casts its weights."""
+    from vda_tpu_torch.probes.param_casts import ParamCasts
+
+    cast, uncast = _vits_models(gen)
+    frames = (np.random.default_rng(7).random((5, 518, 518, 3))
+              * 255).astype(np.uint8)
+    streams = [vt.StreamingDepth(m) for m in (cast, uncast)]
+    for f in frames[:4]:
+        a, b = (s.submit(f) for s in streams)
+        assert torch.equal(a, b)
+    counts = []
+    for m, s in zip((cast, uncast), streams):
+        with ParamCasts(m) as casts:
+            s.submit(frames[4])
+        counts.append(casts.count)
+    assert counts[0] == 0 and counts[1] > 0
 
 
 def _sleep_cycles(ms: float) -> int:

@@ -9,9 +9,11 @@ device: ``video_depth_loss`` (``loss/``), ``make_optimizer`` /
 ``train`` loop with metrics, prefetch and checkpoint resume
 (``parallel/trainer.py``, ``utils/data.py``, ``utils/checkpoint.py``,
 ``utils/augment.py``), and ``models/dinov2.block_apply_nested`` for
-multi-crop batches; the kernel-level W8A8 int8 linear (``ops/quant.py``,
-which the model does not call, as in JAX) and the on-card measurement
-probes (``probes/``).  Plain tensor code is PyTorch; the fourteen TPU
+multi-crop batches; ``load_model_params`` (``utils/loader.py``), the one
+loader of a reference ``.pth`` or a seeded model, with JAX's cast of the
+weights to bf16 once (``cast_params_for_inference``); the kernel-level
+W8A8 int8 linear (``ops/quant.py``, which the model does not call, as in
+JAX) and the on-card measurement probes (``probes/``).  Plain tensor code is PyTorch; the fourteen TPU
 kernels of the JAX package are hand-written Hopper kernels, each beside a
 plain PyTorch twin:
 
@@ -42,8 +44,8 @@ plain PyTorch twin:
     K1's loop with one piece ablated or its tiling changed
   * K13 ``probes/bench_int8.py`` + ``csrc/int8_matmul.cu``: the int8 and
     bf16 rate probe's tiled product
-  * K14 ``probes/probe_stream_kernel.py`` + ``csrc/stream_probe.cu``: K6's
-    features one at a time
+  * K14 ``probes/probe_stream_kernel.py`` + ``csrc/stream_probe.cu``
+    (``stream_probe_sm90.cuh``): K6's features one at a time
 
 The package never imports JAX or ``vda_tpu``; the JAX package is the
 reference its tests hold it to.
@@ -70,6 +72,8 @@ from vda_tpu_torch.parallel.train import (  # noqa: E402,F401
 )
 from vda_tpu_torch.parallel.trainer import train  # noqa: E402,F401
 from vda_tpu_torch.utils.convert import (  # noqa: E402,F401
+    cast_params_for_inference,
     init_random,
     load_state_dict_numpy,
 )
+from vda_tpu_torch.utils.loader import load_model_params  # noqa: E402,F401

@@ -16,14 +16,20 @@
 // Stages the probe runs: dot (0), dot+mask (MASK), dot+mask+pe+softmax
 // (MASK | PE | SOFTMAX), all (every feature).
 //
-// Not K6 with parts cut out: K6 never reads another position's rows.  The
-// probe runs at 32 positions of 8 heads of 32, a few hundred KB, so no
-// bound is in reach; the design is the plainest that is right: a block a
-// (group, head), a warp a query, scores a lane a row through 16-byte
-// loads, the softmax on warp shuffles, the weighted sum a lane a column
-// (serial over the group's rows: its time); scores in shared memory.
+// Not K6 with parts cut out: K6 never reads another position's rows.
+//
+// Two kernels compute it.  The entry point runs the Hopper kernel of
+// stream_probe_sm90.cuh (a cluster of blocks a (group, head), both
+// products on the tensor cores) wherever it takes the shape, and the first
+// build, below, elsewhere (groups over 16, heads over 128 wide):
+// vda_stream_probe_loop says which.  The first build is the plainest that
+// is right: a block a (group, head), a warp a query, scores a lane a row
+// through 16-byte loads, the softmax on warp shuffles, the weighted sum a
+// lane a column (serial over the group's rows: its time, 0.10 ms at the
+// probe's shape); scores in shared memory.
 
 #include "common.cuh"
+#include "stream_probe_sm90.cuh"
 
 namespace vda {
 namespace {
@@ -158,32 +164,101 @@ cudaError_t launch(const void* q, const void* kn, const void* vn,
 }  // namespace
 }  // namespace vda
 
+namespace vda {
+namespace {
+
+// The kernel above at the operands of vda_stream_probe.
+cudaError_t launch_sm80(const probe90::Args& a, cudaStream_t st) {
+#define VDA_STAGE(F)                                                        \
+  case F:                                                                   \
+    return launch<F>(a.q, a.kn, a.vn, a.kb, a.vb, a.pe, a.valid, a.out,     \
+                     a.bhw, a.rows, a.c, a.heads, a.group, a.scale, st)
+  switch (a.features) {
+    VDA_STAGE(0);
+    VDA_STAGE(MASK);
+    VDA_STAGE(MASK | PE | SOFTMAX);
+    VDA_STAGE(MASK | PE | SOFTMAX | NEW);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef VDA_STAGE
+}
+
+// The shapes and feature sets the entry points below take.
+bool valid_shape(int bhw, int rows, int c, int heads, int group,
+                 int features) {
+  if (bhw <= 0 || rows <= 0 || group <= 0 || bhw % group || heads <= 0 ||
+      c % heads || (c / heads) % 8)
+    return false;
+  return features == 0 || features == MASK ||
+         features == (MASK | PE | SOFTMAX) ||
+         features == (MASK | PE | SOFTMAX | NEW);
+}
+
+}  // namespace
+}  // namespace vda
+
+// 90 where vda_stream_probe runs the Hopper kernel of stream_probe_sm90.cuh
+// at this shape, 80 where it runs the kernel above.
+extern "C" int vda_stream_probe_loop(int rows, int c, int heads, int group) {
+  return vda::probe90::takes(rows, c, heads, group) ? 90 : 80;
+}
+
 // q, kn, vn (BHW, C); kb, vb (BHW, rows, C); pe (rows, C); valid (rows,)
-// bytes; out (BHW, C); all bf16 but valid, contiguous, 16-byte aligned.
-// BHW a multiple of group; C / heads a multiple of 8.  features: 0, MASK,
-// MASK | PE | SOFTMAX or all four (1, 7, 15).
+// bytes (a bool tensor as it is); out (BHW, C); all bf16 but valid,
+// contiguous, 16-byte aligned.  BHW a multiple of group; C / heads a
+// multiple of 8.  features: 0, MASK, MASK | PE | SOFTMAX or all four (1, 7,
+// 15).  The Hopper kernel where it takes the shape, the kernel above
+// elsewhere (vda_stream_probe_loop says which).
 extern "C" int vda_stream_probe(const void* q, const void* kn,
                                 const void* vn, const void* kb,
                                 const void* vb, const void* pe,
                                 const void* valid, void* out, int bhw,
                                 int rows, int c, int heads, int group,
                                 float scale, int features, void* stream) {
-  if (bhw <= 0 || rows <= 0 || group <= 0 || bhw % group || heads <= 0 ||
-      c % heads || (c / heads) % 8)
+  if (!vda::valid_shape(bhw, rows, c, heads, group, features))
     return cudaErrorInvalidValue;
-  const auto* flags = static_cast<const unsigned char*>(valid);
+  using vda::probe90::bf16;
+  const vda::probe90::Args a{
+      static_cast<const bf16*>(q),  static_cast<const bf16*>(kn),
+      static_cast<const bf16*>(vn), static_cast<const bf16*>(kb),
+      static_cast<const bf16*>(vb), static_cast<const bf16*>(pe),
+      static_cast<const unsigned char*>(valid), static_cast<bf16*>(out),
+      bhw, rows, c, heads, group, scale, features};
   const auto st = static_cast<cudaStream_t>(stream);
-#define VDA_STAGE(F)                                                        \
-  case F:                                                                   \
-    return vda::launch<F>(q, kn, vn, kb, vb, pe, flags, out, bhw, rows, c,   \
-                          heads, group, scale, st)
-  switch (features) {
-    VDA_STAGE(0);
-    VDA_STAGE(vda::MASK);
-    VDA_STAGE(vda::MASK | vda::PE | vda::SOFTMAX);
-    VDA_STAGE(vda::MASK | vda::PE | vda::SOFTMAX | vda::NEW);
-    default:
-      return cudaErrorInvalidValue;
+  if (vda::probe90::takes(rows, c, heads, group))
+    return vda::probe90::launch<vda::probe90::Mode::kFull>(a, st);
+  return vda::launch_sm80(a, st);
+}
+
+// The steps of K14's design at the operands of vda_stream_probe: variant 0
+// the kernel above (the old build), 1 the Hopper kernel, 2 its loads alone
+// (head widths 32 and 64; writes nothing), 3 an empty kernel on its grid,
+// cluster shape and shared memory.  Variants 1-3 refuse the shapes the
+// Hopper kernel does not take.
+extern "C" int vda_stream_probe_variant(const void* q, const void* kn,
+                                        const void* vn, const void* kb,
+                                        const void* vb, const void* pe,
+                                        const void* valid, void* out,
+                                        int bhw, int rows, int c, int heads,
+                                        int group, float scale, int features,
+                                        int variant, void* stream) {
+  if (!vda::valid_shape(bhw, rows, c, heads, group, features))
+    return cudaErrorInvalidValue;
+  using vda::probe90::bf16;
+  using vda::probe90::Mode;
+  const vda::probe90::Args a{
+      static_cast<const bf16*>(q),  static_cast<const bf16*>(kn),
+      static_cast<const bf16*>(vn), static_cast<const bf16*>(kb),
+      static_cast<const bf16*>(vb), static_cast<const bf16*>(pe),
+      static_cast<const unsigned char*>(valid), static_cast<bf16*>(out),
+      bhw, rows, c, heads, group, scale, features};
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return vda::launch_sm80(a, st);
+    case 1: return vda::probe90::launch<Mode::kFull>(a, st);
+    case 2: return vda::probe90::launch<Mode::kLoads>(a, st);
+    case 3: return vda::probe90::launch<Mode::kEmpty>(a, st);
+    default: return cudaErrorInvalidValue;
   }
-#undef VDA_STAGE
 }

@@ -111,7 +111,7 @@ def _patch_embed(p, x):
     xx = x.reshape(b, ph, k, pw, k, c).permute(0, 1, 3, 2, 4, 5)
     xx = xx.reshape(b, ph * pw, k * k * c)
     wk = p.weight.permute(0, 2, 3, 1).reshape(p.weight.shape[0], -1)
-    return torch.matmul(xx, wk.to(x.dtype).t()) + p.bias.to(x.dtype)
+    return torch.matmul(xx, wk.to(x.dtype).t()) + cast_once(p.bias, x.dtype)
 
 
 def _interp_pos_embed(pos_embed, grid_hw, cfg: EncoderConfig):
@@ -142,8 +142,8 @@ def prepare_tokens(enc: DinoVisionTransformer, x, masks=None):
     tokens = _patch_embed(enc.patch_embed.proj, x)
     if masks is not None:
         tokens = torch.where(masks[..., None],
-                             enc.mask_token.to(tokens.dtype), tokens)
-    cls = enc.cls_token.to(tokens.dtype).expand(b, 1, -1)
+                             cast_once(enc.mask_token, tokens.dtype), tokens)
+    cls = cast_once(enc.cls_token, tokens.dtype).expand(b, 1, -1)
     tokens = torch.cat([cls, tokens], dim=1)
     return tokens + _interp_pos_embed(enc.pos_embed, grid, cfg).to(tokens.dtype)
 
@@ -188,12 +188,12 @@ def _block(blk: Block, x, cfg: EncoderConfig, kernels: bool, fuse_proj: bool,
     else:
         h = _attention(blk.attn, layer_norm(blk.norm1, x, kernel=ln_kernel),
                        cfg.num_heads, kernels)
-        h = h * blk.ls1.gamma.to(h.dtype)
+        h = h * cast_once(blk.ls1.gamma, h.dtype)
         if masks is not None:
             h = apply_drop_path(h, masks[0])
         x = x + h
     h = _mlp(blk, layer_norm(blk.norm2, x, kernel=ln_kernel))
-    h = h * blk.ls2.gamma.to(h.dtype)
+    h = h * cast_once(blk.ls2.gamma, h.dtype)
     if masks is not None:
         h = apply_drop_path(h, masks[1])
     return x + h
@@ -237,9 +237,9 @@ def block_apply_nested(blk: Block, x_list, cfg: EncoderConfig,
     o = packed_self_attention(q, k, v, cfg.num_heads, dh ** -0.5, impl,
                               segment_lengths=tuple(seglens))
     h = linear(blk.attn.proj, o)
-    packed = packed + h * blk.ls1.gamma.to(h.dtype)
+    packed = packed + h * cast_once(blk.ls1.gamma, h.dtype)
     h = _mlp(blk, layer_norm(blk.norm2, packed, kernel=ln_kernel))
-    packed = packed + h * blk.ls2.gamma.to(h.dtype)
+    packed = packed + h * cast_once(blk.ls2.gamma, h.dtype)
     outs = []
     off = 0
     for xi in x_list:

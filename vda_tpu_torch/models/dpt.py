@@ -21,7 +21,7 @@ from torch import nn
 
 from vda_tpu_torch.config import ModelConfig
 from vda_tpu_torch.models.temporal import TemporalModule, temporal_module_apply
-from vda_tpu_torch.ops.layers import Conv2d, ConvTranspose2d, conv2d
+from vda_tpu_torch.ops.layers import Conv2d, ConvTranspose2d, cast_once, conv2d
 from vda_tpu_torch.ops.layers import conv_transpose_same_stride
 from vda_tpu_torch.ops.resize import resize_bilinear
 
@@ -129,7 +129,7 @@ def _output_tail(head: DPTHeadTemporal, path_3, layer_2_rn, layer_1_rn,
     dtype = out.dtype
     c0, c1 = sc.output_conv2[0], sc.output_conv2[2]
     y = torch.nn.functional.conv2d(
-        out.float().permute(0, 3, 1, 2), c0.weight.to(dtype).float(),
+        out.float().permute(0, 3, 1, 2), cast_once(c0.weight, dtype).float(),
         c0.bias.float(), padding=1)
     y = torch.relu(torch.nn.functional.conv2d(torch.relu(y), c1.weight.float(),
                                               c1.bias.float()))

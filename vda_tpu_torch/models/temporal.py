@@ -36,6 +36,7 @@ from vda_tpu_torch.ops.attention import attention_plain
 from vda_tpu_torch.ops.layers import (
     Linear,
     Norm,
+    cast_once,
     group_norm,
     layer_norm,
     linear,
@@ -115,8 +116,9 @@ class TemporalModule(nn.Module):
 
 
 def _pe(attn: TemporalAttention, t: int, dtype):
-    """The first ``t`` rows of the module's sinusoidal table in ``dtype``."""
-    return attn.pos_encoder.pe[0, :t].to(dtype)
+    """The first ``t`` rows of the module's sinusoidal table in ``dtype``
+    (the whole table cast once)."""
+    return cast_once(attn.pos_encoder.pe, dtype)[0, :t]
 
 
 def _attend(q, k, v, heads: int, kernels: bool):

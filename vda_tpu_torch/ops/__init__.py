@@ -64,5 +64,6 @@ def reset_launch_counts() -> None:
         stream_kernel.launches_by_loop, 0)
     for probe in _probes():
         probe.launches = 0
-    k12 = _probes()[0]
+    k12, _, k14 = _probes()
     k12.launches_by_loop = dict.fromkeys(k12.launches_by_loop, 0)
+    k14.launches_by_loop = dict.fromkeys(k14.launches_by_loop, 0)

@@ -115,6 +115,10 @@ _SIGNATURES = {
     # q, k_new, v_new, k_buf, v_buf, pe, valid, out, BHW, rows, C, heads,
     # group, scale, features, stream
     "vda_stream_probe": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    # rows, C, heads, group -> 90 (the Hopper kernel) or 80
+    "vda_stream_probe_loop": [_I] * 4,
+    # the operands of vda_stream_probe, features, variant, stream
+    "vda_stream_probe_variant": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
 }
 
 build_seconds = None  # wall time of the nvcc run in this process, if any

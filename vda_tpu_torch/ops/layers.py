@@ -5,8 +5,11 @@ package's layouts: images and features are NHWC; convolutions run NCHW inside
 (``permute`` of an NHWC tensor is a channels-last NCHW view, which cuDNN takes
 as it is).  Parameters keep the reference's torch layouts: linear weights
 (out, in), conv weights OIHW, conv-transpose weights (Cin, Cout, k, k).  They
-are stored in fp32 and cast to the compute dtype where they are used, as the
-JAX side does.
+are stored in fp32, or with weights already in bf16 once a loader has cast
+them (``utils/convert.cast_params_for_inference``), and the weights are cast
+to the compute dtype where they are used, as the JAX side casts them; the
+1-D parameters (biases) take their cast copy from ``cast_once``, made once,
+so a step on a cast model casts no parameter.
 
 Numerics policy (as in JAX): LayerNorm and GroupNorm statistics are fp32;
 GELU is exact erf in fp32 and the tanh form in bf16 (``vda_tpu/ops/layers.py``
@@ -96,8 +99,9 @@ def gelu(x):
 
 
 def linear(p, x):
-    """x @ W^T + b with the weight cast to x's dtype."""
-    b = None if p.bias is None else p.bias.to(x.dtype)
+    """x @ W^T + b with the weight cast to x's dtype (the bias's cast made
+    once)."""
+    b = None if p.bias is None else cast_once(p.bias, x.dtype)
     return F.linear(x, p.weight.to(x.dtype), b)
 
 
@@ -152,7 +156,7 @@ def drop_path(x, rate: float, generator: torch.Generator):
 
 def conv2d(p, x, stride: int = 1, padding: int = 0):
     """2D conv on NHWC input with symmetric integer padding."""
-    b = None if p.bias is None else p.bias.to(x.dtype)
+    b = None if p.bias is None else cast_once(p.bias, x.dtype)
     y = F.conv2d(x.permute(0, 3, 1, 2), p.weight.to(x.dtype), b,
                  stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)
@@ -165,4 +169,4 @@ def conv_transpose_same_stride(p, x, k: int):
     wk = p.weight.to(x.dtype)                      # (Cin, Cout, k, k)
     cout = wk.shape[1]
     y = torch.einsum("nhwc,cokl->nhkwlo", x, wk).reshape(n, h * k, w * k, cout)
-    return y + p.bias.to(x.dtype)
+    return y + cast_once(p.bias, x.dtype)

@@ -8,7 +8,8 @@ K11/K13's Hopper GEMM loop (``bench_gemm_sm90``), K3/K4's Hopper code
 (``bench_temporal_sm90``), K6's Hopper loop (``bench_stream_sm90``),
 K10's Hopper kernel (``bench_resize_sm90``) and K5's and K8's Hopper code
 (``bench_short_attn_sm90``; ``time_short_attn_paths`` times the paths that
-launch them against another checkout), which have no JAX counterpart::
+launch them against another checkout), which have no JAX counterpart;
+``param_casts.ParamCasts`` counts a model's parameter casts at use::
 
     python -m vda_tpu_torch.probes.bench_int8
     python -m vda_tpu_torch.probes.bench_attn_variants [variant ...]

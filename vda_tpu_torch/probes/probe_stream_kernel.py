@@ -17,11 +17,24 @@ Each stage runs under its time budget, is held against its plain twin
 within 3.9e-3 of the output's scale (exp rounded to bf16, docs/PARITY.md)
 and prints its time.  The probe exits non-zero if a stage disagrees, and
 ends with exit code 1 if one outlives its budget.
+
+K14 runs the Hopper kernel of ``csrc/stream_probe_sm90.cuh`` (a cluster of
+up to 8 blocks a (group, head), both products on mma.sync, the row maxima
+exchanged over distributed shared memory) wherever it takes the shape
+(groups of up to 16 positions, head widths a multiple of 8 up to 128), and
+the first build of ``csrc/stream_probe.cu`` elsewhere; ``loop_of`` says
+which and ``launches_by_loop`` counts the launches by loop.  Its K14 stages
+also print ``held_ms`` (``probes.time_held_ms``: the device held while the
+host enqueues the calls) beside the design's steps timed the same way
+(``variant``): ``old`` the first build, ``loads`` the Hopper kernel's loads
+alone, ``floor`` an empty kernel on its grid, cluster shape and shared
+memory.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 
@@ -29,7 +42,7 @@ import numpy as np
 import torch
 
 from vda_tpu_torch.ops import _build, stream_kernel
-from vda_tpu_torch.probes import budget, require_cuda, time_ms
+from vda_tpu_torch.probes import budget, require_cuda, time_held_ms, time_ms
 
 BHW, ROWS, C, HEADS, G = 32, 43, 256, 8, 16  # scripts/probe_stream_kernel.py
 N_VALID = 31  # its valid cached rows
@@ -45,6 +58,12 @@ K6_STAGES = {"full": (BHW, C, SCALE), "full1024": (32, 1024, SCALE_1024),
              "big": (1376, 1024, SCALE_1024)}
 
 launches = 0  # K14 launches made by ``simple_kernel``
+launches_by_loop = {"sm90": 0, "sm80": 0}  # the same launches by loop
+# the steps of K14's design (``variant``): the first build, the Hopper
+# kernel, its loads alone, an empty kernel on its grid
+VARIANTS = {"old": 0, "sm90": 1, "loads": 2, "floor": 3}
+STEPS = ("old", "loads", "floor")  # the steps ``run`` times beside a stage
+variant_launches = 0  # launches made by ``variant``
 
 
 def make_inputs(bhw=BHW, c=C, device="cuda"):
@@ -106,18 +125,27 @@ def simple_kernel_reference(feats, inputs, heads=HEADS, group=G,
     return o.transpose(1, 2).reshape(bhw, c).to(out_dtype)
 
 
-def simple_kernel(feats, inputs, heads=HEADS, group=G, scale=SCALE):
-    """K14: the reduced kernel with features ``feats``: (), ("mask",),
-    ("mask", "pe", "softmax") or all four.  ``inputs`` as ``make_inputs``
-    gives them (bf16; BHW a multiple of ``group``)."""
-    global launches
-    q, kn, vn, kb, vb, pe, valid = inputs
-    if q.device.type == "cpu":
-        return simple_kernel_reference(feats, inputs, heads, group, scale)
-    name = "stream_probe"
+@functools.lru_cache(maxsize=None)
+def loop_of(rows: int, c: int, heads: int, group: int) -> str:
+    """The device code ``simple_kernel`` runs at this shape, as the C entry
+    point reports it (``vda_stream_probe_loop``): "sm90" (the Hopper kernel)
+    or "sm80" (the first build)."""
+    code = _build.library().vda_stream_probe_loop(rows, c, heads, group)
+    return "sm90" if code == 90 else "sm80"
+
+
+def _bits(feats) -> int:
     bits = sum(1 << FEATURES.index(f) for f in set(feats))
     if bits not in (0, 1, 7, 15):
-        raise ValueError(f"{name}: unsupported feature set {sorted(feats)}")
+        raise ValueError(f"stream_probe: unsupported feature set "
+                         f"{sorted(feats)}")
+    return bits
+
+
+def _check(inputs, heads, group):
+    """The operands' shapes, or ValueError: (bhw, rows, c)."""
+    name = "stream_probe"
+    q, kn, vn, kb, vb, pe, valid = inputs
     bhw, rows, c = kb.shape
     for t, shape in ((q, (bhw, c)), (kn, (bhw, c)), (vn, (bhw, c)),
                      (kb, (bhw, rows, c)), (vb, (bhw, rows, c)),
@@ -127,20 +155,60 @@ def simple_kernel(feats, inputs, heads=HEADS, group=G, scale=SCALE):
                 or t.data_ptr() % 16):
             raise ValueError(f"{name}: expected contiguous, 16-byte aligned "
                              f"bf16 {shape} on {q.device}")
-    if bhw % group or c % heads or (c // heads) % 8 \
-            or tuple(valid.shape) != (rows,):
+    # valid is read as it is: one byte an element (bool or uint8)
+    if (tuple(valid.shape) != (rows,) or valid.device != q.device
+            or valid.dtype not in (torch.bool, torch.uint8)
+            or not valid.is_contiguous()):
+        raise ValueError(f"{name}: valid must be a contiguous bool or uint8 "
+                         f"({rows},) tensor on {q.device}")
+    if bhw % group or c % heads or (c // heads) % 8:
         raise ValueError(f"{name}: unsupported shape {tuple(kb.shape)}, "
                          f"{heads} heads, groups of {group}")
-    flags = valid.to(device=q.device, dtype=torch.uint8).contiguous()
+    return bhw, rows, c
+
+
+def _operands(inputs, out):
+    return [t.data_ptr() for t in (*inputs, out)]
+
+
+def simple_kernel(feats, inputs, heads=HEADS, group=G, scale=SCALE):
+    """K14: the reduced kernel with features ``feats``: (), ("mask",),
+    ("mask", "pe", "softmax") or all four.  ``inputs`` as ``make_inputs``
+    gives them (bf16; BHW a multiple of ``group``; ``valid`` a bool or uint8
+    tensor, passed as it is)."""
+    global launches
+    q = inputs[0]
+    if q.device.type == "cpu":
+        return simple_kernel_reference(feats, inputs, heads, group, scale)
+    bits = _bits(feats)
+    bhw, rows, c = _check(inputs, heads, group)
     out = torch.empty_like(q)
     err = _build.library().vda_stream_probe(
-        q.data_ptr(), kn.data_ptr(), vn.data_ptr(), kb.data_ptr(),
-        vb.data_ptr(), pe.data_ptr(), flags.data_ptr(), out.data_ptr(), bhw,
-        rows, c, heads, group, float(scale), bits, _build.stream_ptr(q))
+        *_operands(inputs, out), bhw, rows, c, heads, group, float(scale),
+        bits, _build.stream_ptr(q))
     if err == _build.INVALID_VALUE:
-        raise ValueError(f"{name}: unsupported shape {tuple(kb.shape)}")
+        raise ValueError(f"stream_probe: unsupported shape {(bhw, rows, c)}")
     _build.check(err, "vda_stream_probe")
     launches += 1
+    launches_by_loop[loop_of(rows, c, heads, group)] += 1
+    return out
+
+
+def variant(name, feats, inputs, out, heads=HEADS, group=G, scale=SCALE):
+    """One step of K14's design (``VARIANTS``) into ``out`` (on the card):
+    "old" the first build, "sm90" the Hopper kernel, "loads" its loads
+    alone and "floor" an empty kernel on its grid (these two write
+    nothing).  Counted in ``variant_launches``, not in ``launches``."""
+    global variant_launches
+    bhw, rows, c = _check(inputs, heads, group)
+    err = _build.library().vda_stream_probe_variant(
+        *_operands(inputs, out), bhw, rows, c, heads, group, float(scale),
+        _bits(feats), VARIANTS[name], _build.stream_ptr(out))
+    if err == _build.INVALID_VALUE:
+        raise ValueError(f"stream_probe {name}: unsupported shape "
+                         f"{(bhw, rows, c)}")
+    _build.check(err, "vda_stream_probe_variant")
+    variant_launches += 1
     return out
 
 
@@ -152,7 +220,10 @@ def _rel(ref, got):
 def run(stages=("dot2", "mask", "pe", "new", "full", "full1024"),
         reps: int = 20, budget_s: int = 240):
     """Each stage on the card under its time budget: a list of dicts with
-    ms, max_rel against the twin and ``ok``."""
+    ms, max_rel against the twin and ``ok``; K14's stages also the loop it
+    ran, ``held_ms`` and the held times of the design's other steps
+    (``old_ms``, ``loads_ms``, ``floor_ms``; each a warm-up and ``reps``
+    calls of ``variant``)."""
     rows = []
     for stage in stages:
         with budget(budget_s):
@@ -183,8 +254,16 @@ def run(stages=("dot2", "mask", "pe", "new", "full", "full1024"),
             torch.cuda.synchronize()
             finite = bool(torch.isfinite(got).all())
             err = 0.0 if ref is None else _rel(ref, got)
-            rows.append(dict(stage=stage, ms=time_ms(fn, reps), max_rel=err,
-                             tol=TOL, ok=finite and err < TOL))
+            row = dict(stage=stage, ms=time_ms(fn, reps), max_rel=err,
+                       tol=TOL, ok=finite and err < TOL)
+            if stage in STAGES:
+                out = torch.empty_like(got)
+                row.update(loop=loop_of(ROWS, C, HEADS, G),
+                           held_ms=time_held_ms(fn, reps),
+                           **{f"{v}_ms": time_held_ms(
+                               lambda v=v: variant(v, feats, inputs, out),
+                               reps) for v in STEPS})
+            rows.append(row)
     return rows
 
 
@@ -206,8 +285,11 @@ def main(argv=None) -> int:
                              "full1024"]
     rows = run(stages, args.reps, args.budget)
     for r in rows:
-        print(f"[{r['stage']}] {r['ms']:.4f} ms  max_rel {r['max_rel']:.2e}  "
-              f"{'agrees' if r['ok'] else 'DISAGREES'}", flush=True)
+        held = "".join(f"  {k} {r[k]:.4f}" for k in r
+                       if k.endswith("_ms") and k != "ms")
+        print(f"[{r['stage']}] {r['ms']:.4f} ms{held}  max_rel "
+              f"{r['max_rel']:.2e}  {'agrees' if r['ok'] else 'DISAGREES'}",
+              flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "rows": rows}))
     return 0 if all(r["ok"] for r in rows) else 1
 

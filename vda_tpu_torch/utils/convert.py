@@ -1,5 +1,14 @@
-"""Weights for the port: the JAX package's exported state dict, or a seeded
-random initialisation.
+"""Weights for the port: a reference ``.pth``, the JAX package's exported
+state dict, or a seeded random initialisation, and the cast to the compute
+dtype that inference loads them with.
+
+``load_torch_checkpoint`` loads a reference-format ``.pth`` (a bare state
+dict or one wrapped in ``{"state_dict": ...}``) strictly, the counterpart of
+``vda_tpu/utils/convert.py`` ``load_torch_checkpoint``.
+``cast_params_for_inference`` is JAX's ``cast_params_for_inference``: every
+parameter of 2 or more dims is stored once in bf16, except the fp32 output
+island's (``head.scratch.output_conv2``); 1-D parameters and buffers stay
+fp32.
 
 ``load_state_dict_numpy`` takes the flat reference-format numpy dict that
 ``vda_tpu.utils.convert.export_state_dict`` emits (reference key names and
@@ -34,6 +43,41 @@ def load_state_dict_numpy(model: VideoDepthAnything,
     model.load_state_dict(
         {k: torch.from_numpy(np.array(v, np.float32)).to(device)
          for k, v in sd.items()}, strict=True)
+    return model
+
+
+def load_torch_checkpoint(path: str,
+                          model: VideoDepthAnything) -> VideoDepthAnything:
+    """Load a reference ``.pth`` (reference run.py:50-54) into ``model``,
+    strictly: every key used, every parameter and buffer given.  A state
+    dict wrapped as ``{"state_dict": ...}`` is unwrapped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+ISLAND = "head.scratch.output_conv2."  # the fp32 output convs' parameters
+# parameters the reference shapes (1, 1, C) and (1, C) whose JAX leaves are
+# (C,) vectors: 1-D to JAX's rule, so they stay fp32
+TOKENS = ("pretrained.cls_token", "pretrained.mask_token")
+
+
+@torch.no_grad()
+def cast_params_for_inference(model: torch.nn.Module,
+                              dtype=torch.bfloat16) -> torch.nn.Module:
+    """Stores every parameter of 2 or more dims in ``dtype``, in place, once
+    (JAX ``cast_params_for_inference``: the weights carry the memory
+    traffic), except those of the fp32 output island; 1-D parameters (norm
+    scales, biases, LayerScale gammas; the cls and mask tokens, vectors in
+    JAX) and buffers (``pos_encoder.pe``) stay fp32.
+    ``pretrained.pos_embed`` (1, N, C) is cast, as JAX casts it.  Returns
+    ``model``."""
+    for name, p in model.named_parameters():
+        if p.dim() >= 2 and not name.startswith(ISLAND) \
+                and name not in TOKENS:
+            p.data = p.data.to(dtype)
     return model
 
 

@@ -1,0 +1,65 @@
+"""The one way the port's entry points load a model: a reference ``.pth`` or
+a seeded random initialisation, then the cast inference runs with.
+
+The counterpart of ``vda_tpu/utils/loader.py`` ``load_model_params``, which
+every JAX app loads through.  The JAX package's own ``.npz`` pytree format
+is not read here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from vda_tpu_torch.config import ModelConfig, checkpoint_name, get_config
+from vda_tpu_torch.models.vda import VideoDepthAnything
+from vda_tpu_torch.utils.convert import (
+    cast_params_for_inference,
+    init_random,
+    load_torch_checkpoint,
+)
+
+
+def load_model_params(
+    encoder: str,
+    metric: bool = False,
+    checkpoint: Optional[str] = None,
+    random_init: bool = False,
+    cast_bf16: bool = True,
+    cfg: Optional[ModelConfig] = None,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[ModelConfig, VideoDepthAnything]:
+    """(cfg, model) from a reference ``.pth`` (``checkpoint``, by default
+    ``./checkpoints/<checkpoint_name>.pth``) or, with ``random_init``, from
+    ``init_random`` seeded by ``generator`` (by default a ``torch.Generator``
+    on ``device`` seeded 0; JAX's ``PRNGKey(0)`` gives other values).
+    ``cast_bf16`` stores the weights in bf16 once, as JAX's loader does
+    (``cast_params_for_inference``); pass False for fp32 runs.  The model
+    lives on ``device``: the card unless the caller asks for ``"cpu"``."""
+    if cfg is None:
+        cfg = get_config(encoder, metric=metric)
+    if random_init:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        model = init_random(cfg, generator, device=device)
+    else:
+        ckpt = checkpoint or os.path.join(
+            "./checkpoints", checkpoint_name(encoder, metric) + ".pth")
+        if ckpt.endswith(".npz"):
+            raise ValueError(
+                f"{ckpt}: .npz is the JAX package's pytree format; the port "
+                f"loads reference-format .pth checkpoints (export one with "
+                f"vda_tpu.utils.convert.save_torch_checkpoint)")
+        if not os.path.exists(ckpt):
+            raise FileNotFoundError(
+                f"checkpoint not found: {ckpt} — pass an explicit checkpoint "
+                f"path, run scripts/get_weights.sh, or use random init "
+                f"(testing only)")
+        model = load_torch_checkpoint(ckpt, VideoDepthAnything(cfg,
+                                                               device=device))
+    if cast_bf16:
+        cast_params_for_inference(model)
+    return cfg, model
