@@ -47,6 +47,21 @@ with every launch counter set to 0 just before it and read just after:
     attention or temporal kernel; then a checkpoint resumed bit for bit,
     and one step from the seeded initial state with the kernels against
     the all-plain step;
+  * ``apps``: the entry points (``vda_tpu_torch.apps``), each ``main(argv)``
+    in this process at vitl width with seeded weights (``--random-init``):
+    the offline CLI on 40 frames of 518x518 (two windows) with
+    ``--save_npz``, bit-identical to ``infer_video_depth`` on the model it
+    loaded (K1 24, K2 54, K3 2, K4 4 a window, on the Hopper code); the
+    streaming CLI on 12 frames at ``--lookahead`` 1 (depths and cache
+    bit-identical to a ``submit`` loop) and 4 (``submit_group``: the cache
+    bit-identical, depths within 1e-2), then 4 ``submit`` calls against one
+    group of 4 in turns, ms a frame; ``benchmark_infer`` on one 8-frame
+    480x640 scene (fp32, bit-identical to the direct call); the train CLI
+    (2 synthetic steps at 266, ``--export-pth`` reloaded by
+    ``load_model_params`` bit for bit); the engine's degradation ladder at
+    its strategy (``cuda_direct``, not degraded, bit-identical).  Decode and
+    encode functions whose library the card lacks are replaced by numpy
+    stand-ins on seeded frames, named on the line;
   * ``int8``: the W8A8 linear, ``ops.quant.int8_linear`` (K11) at the
     encoder's qkv shape on vitl's first qkv weight, bf16 and fp32
     activations, bit-identical with its twin and within 2e-2 of the bf16
@@ -241,6 +256,15 @@ TOL = {"K1": 3.9e-3, "K2": 3.9e-3, "K3": 2e-2, "K4": 2e-2, "K5": 3.9e-3,
 MULTI_CROP = (32, (2, 257), (8, 50))
 N_TRAIN_STEPS = 6
 TRAIN_CLIP = (1, 8, SIZE)  # B, T, side: scripts/train_throughput.py's shape
+N_APPS = 40  # the offline CLI's and the engine's video: two windows
+N_APP_STREAM = 12  # a first frame, two groups of 4 and 3 frames left over
+APP_SCENE = (8, 480, 640)  # benchmark_infer's scene: ScanNet's frame size
+APP_TRAIN_SIZE = 266  # the train CLI's default --size
+# the host libraries of the entry points' decode, encode and demo
+HOST_LIBS = ("cv2", "imageio", "matplotlib", "OpenEXR", "gradio")
+# vitl K2 launches of a stream step: the encoder's 48 block and 4 tap norms
+# (once a group with submit_group), and the motion modules' 12
+ENC_K2, MM_K2 = 52, 12
 # The least time of a call: the larger of its bytes (each input read once,
 # each output written once) over the memory rate and its operations over
 # the peak rate for their type (NVIDIA H100 SXM data sheet, dense).
@@ -1681,6 +1705,283 @@ def phase_train():
     return counts
 
 
+def stream_launches(n: int, k: int) -> dict:
+    """vitl launches of a streaming CLI run of n frames at ``--lookahead``
+    k: the first frame and the leftover frames a ``submit`` each, the rest
+    in groups of k (the encoder batched: its K1s and K2s once a group; the
+    motion modules' K2s a frame)."""
+    groups, left = ((n - 1) // k, (n - 1) % k) if k > 1 else (0, n - 1)
+    singles = 1 + left
+    return {**ZERO, "K1": 24 * (singles + groups),
+            "K2": PER_STEP["K2"] * singles + groups * (ENC_K2 + MM_K2 * k),
+            "K5": 8}
+
+
+def same_cache(a, b) -> bool:
+    """Two streams' bookkeeping and cache buffers, bit for bit."""
+    return a.order == b.order and a.id == b.id and all(
+        torch.equal(x, y) for x, y in zip(a.buffers, b.buffers, strict=True))
+
+
+def phase_apps():
+    """The port's entry points (``vda_tpu_torch.apps``), each ``main(argv)``
+    in this process on the card at vitl width with ``--random-init``
+    (``load_model_params``' weights, seeded 0): the offline CLI on N_APPS frames with
+    ``--save_npz``, its depths against ``infer_video_depth`` on the model
+    it loaded; the streaming CLI on N_APP_STREAM frames at ``--lookahead``
+    1 (depths and cache against a ``submit`` loop, bit for bit) and 4
+    (``submit_group``: the cache bit for bit, the depths within 1e-2); then
+    4 ``submit`` calls against one ``submit_group`` of 4, in turns, ms a
+    frame; ``benchmark_infer`` on one APP_SCENE scene against
+    ``infer_video_depth(fp32=True)``; the train CLI (2 synthetic steps,
+    ``--export-pth``) and its ``.pth`` reloaded by ``load_model_params``,
+    bit for bit; the engine's ``_infer_with_degradation`` at its strategy
+    on the N_APPS frames.  The clips are written and decoded with cv2;
+    where the host lacks the libraries ``io.save_video`` encodes with
+    (HOST_LIBS), it is replaced by a numpy stand-in (named on the line), so
+    everything from the frames to the written files is the entry points'
+    own code.  Returns the launches of the phase."""
+    import importlib.util
+    import tempfile
+
+    import cv2
+
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.apps import benchmark_infer, run, run_streaming, train
+    from vda_tpu_torch.apps.engine import engine, strategies
+    from vda_tpu_torch.utils import io
+
+    encoder, size, device = "vitl", SIZE, "cuda"
+    missing = [m for m in HOST_LIBS if importlib.util.find_spec(m) is None]
+    rng = np.random.default_rng(13)
+    frames = (rng.random((N_APPS, size, size, 3)) * 255).astype(np.uint8)
+    n_scene, sh, sw = APP_SCENE
+    scene = (rng.random((n_scene, sh, sw, 3)) * 255).astype(np.uint8)
+    work = tempfile.mkdtemp(prefix="vda_apps_")
+    video = os.path.join(work, "clip.mp4")
+    names = [f"scannet/scene0000_00/color/{i:06d}.png" for i in range(n_scene)]
+    manifest = os.path.join(work, "scannet_video.json")
+    with open(manifest, "w") as f:
+        json.dump({"scannet": [{"scene0000_00": [
+            {"image": n, "gt_depth": n, "factor": 1000.0} for n in names]}]},
+            f)
+    restore, stood_in, loaded, load_s, streams = [], [], [], [], []
+
+    def replace(owner, name, fn):
+        restore.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, fn)
+
+    def stand_in(owner, name, fn):
+        replace(owner, name, fn)
+        stood_in.append(f"{owner.__name__}.{name}")
+
+    out = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                          (size, size))
+    for f in frames:
+        out.write(f[:, :, ::-1].copy())
+    out.release()
+    for n, f in zip(names, scene):
+        os.makedirs(os.path.dirname(os.path.join(work, n)), exist_ok=True)
+        cv2.imwrite(os.path.join(work, n), f[:, :, ::-1].copy())
+    if "matplotlib" in missing:
+        def save_video(frames_, output_path, fps=10, is_depths=False,
+                       grayscale=False):
+            with open(output_path, "wb") as f:
+                np.save(f, np.asarray(frames_))
+
+        stand_in(io, "save_video", save_video)
+
+    def keep(args, load=run.load_model):
+        """The CLI's own loader; keeps the model and its load time."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, model = load(args)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+        loaded.append(model)
+        return cfg, model
+
+    class Recording(run_streaming.StreamingDepth):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            streams.append(self)
+
+    replace(run, "load_model", keep)
+    replace(run_streaming, "StreamingDepth", Recording)
+
+    def call(fn, argv):
+        """(fn's result, wall s, launches, whether every K1, K3, K4 and K5
+        launch ran the Hopper code) of one entry point."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        wall, c = time.perf_counter() - t0, ops.launch_counts()
+        return out, wall, c, (by_loop_ok(c) and temporal_by_loop_ok(c)
+                              and k5_k8_by_loop_ok(c))
+
+    common = ["--encoder", encoder, "--random-init", "--device", device]
+    total = dict(ZERO)
+    fails = []
+    try:
+        seen, fps = io.read_video_frames(video)
+        out1 = os.path.join(work, "offline")
+        depths, wall, counts, hopper = call(run.main, [
+            "--input_video", video, "--output_dir", out1, "--save_npz",
+            "--input_size", str(size)] + common)
+        model = loaded.pop()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct, _ = vt.infer_video_depth(model, seen, fps, input_size=size)
+        torch.cuda.synchronize()
+        npz = np.load(os.path.join(out1, "clip_depths.npz"))["depths"]
+        n_windows = len(range(0, N_APPS, 22))
+        offline = dict(frames=N_APPS, windows=n_windows, wall_s=wall,
+                       load_s=load_s[-1],
+                       direct_wall_s=time.perf_counter() - t0,
+                       launches=counts, files=sorted(os.listdir(out1)),
+                       bit_identical=bool(np.array_equal(npz, direct)
+                                          and np.array_equal(depths, direct)))
+        total = {k: total[k] + counts[k] for k in total}
+        if not offline["bit_identical"]:
+            fails.append("offline CLI depths differ from the direct call")
+        want = {k: v * n_windows for k, v in PER_WINDOW.items()}
+        if counts != want or not hopper:
+            fails.append(f"offline CLI launches {counts} != {want}, or off "
+                         "the Hopper loops")
+        del model, depths, direct, npz
+
+        stream = {}
+        out2 = os.path.join(work, "stream")
+        runs = {}
+        for k in (1, 4):
+            got, wall, counts, hopper = call(run_streaming.main, [
+                "--input_video", video, "--output_dir", out2,
+                "--max_len", str(N_APP_STREAM), "--lookahead", str(k),
+                "--input_size", str(size)] + common)
+            runs[k] = (np.stack(got), streams.pop(), loaded.pop())
+            total = {key: total[key] + counts[key] for key in total}
+            stream[f"lookahead_{k}"] = dict(wall_s=wall, launches=counts)
+            if counts != stream_launches(N_APP_STREAM, k) or not hopper:
+                fails.append(f"streaming CLI --lookahead {k}: launches "
+                             f"{counts} != {stream_launches(N_APP_STREAM, k)}"
+                             ", or off the Hopper loops")
+        direct = vt.StreamingDepth(runs[1][2], input_size=size)
+        ref = np.stack([direct.submit(f).cpu().numpy()
+                        for f in seen[:N_APP_STREAM]])
+        la4 = float(np.abs(runs[4][0] - ref).max() / np.abs(ref).max())
+        stream.update(
+            lookahead_1_bit_identical=bool(np.array_equal(runs[1][0], ref)),
+            lookahead_1_cache_identical=same_cache(runs[1][1], direct),
+            lookahead_4_cache_identical=same_cache(runs[4][1], direct),
+            lookahead_4_max_rel=la4)
+        if not (stream["lookahead_1_bit_identical"]
+                and stream["lookahead_1_cache_identical"]
+                and stream["lookahead_4_cache_identical"] and la4 < 1e-2):
+            fails.append(f"streaming CLI against a submit loop: {stream}")
+        # 4 submits (the direct stream) against one group of 4 (the
+        # --lookahead 4 run's stream, whose cache is the same), in turns
+        grouped = runs[4][1]
+        ms = {"submit": [], "group": []}
+        for r in range(5):
+            batch = seen[N_APP_STREAM + 4 * r:N_APP_STREAM + 4 * r + 4]
+            turns = (("submit", lambda: [direct.submit(f) for f in batch]),
+                     ("group", lambda: grouped.submit_group(batch)))
+            for name, fn in turns[::1 if r % 2 else -1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - t0) / 4)
+        stream.update(
+            submit_ms_per_frame=ms["submit"], group_ms_per_frame=ms["group"],
+            submit_median=float(np.median(ms["submit"])),
+            group_median=float(np.median(ms["group"])),
+            cache_identical_after=same_cache(direct, grouped))
+        if not stream["cache_identical_after"]:
+            fails.append("submit_group's cache left the submits' after "
+                         "the timed rounds")
+        del runs, direct, grouped, ref
+
+        preds = os.path.join(work, "preds")
+        _, wall, counts, _ = call(benchmark_infer.main, [
+            "--infer_path", preds, "--json_file", manifest, "--datasets",
+            "scannet", "--input_size", str(size)] + common)
+        model = loaded.pop()
+        direct, _ = vt.infer_video_depth(model, scene, 1, input_size=size,
+                                         fp32=True)
+        outs = [np.load(os.path.join(preds, "scannet",
+                                     n.replace(".png", ".npy")))
+                for n in names]
+        bench = dict(frames=n_scene, hw=[sh, sw], wall_s=wall,
+                     launches=counts, bit_identical=all(
+                         np.array_equal(o, d) for o, d in zip(outs, direct)))
+        total = {k: total[k] + counts[k] for k in total}
+        if not bench["bit_identical"]:
+            fails.append("benchmark_infer's .npy differ from the direct call")
+        # one fp32 window (K1 fp32 runs the mma.sync loop)
+        if counts != PER_WINDOW:
+            fails.append(f"benchmark_infer launches {counts} != "
+                         f"{PER_WINDOW}")
+        del model, direct, outs
+
+        pth = os.path.join(work, "trained.pth")
+        state, wall, counts, _ = call(train.main, [
+            "--synthetic", "--frames", "8", "--size", str(APP_TRAIN_SIZE),
+            "--steps", "2", "--export-pth", pth, "--encoder", encoder,
+            "--device", device])
+        _, back = vt.load_model_params(encoder, checkpoint=pth,
+                                       cast_bf16=False, device=device)
+        sa, sb = state.model.state_dict(), back.state_dict()
+        depth = state.model.cfg.vit.depth
+        want = {**ZERO, "K2": 2 * (2 * depth + 4 + 3 * 4 + 2 * depth)}
+        trained = dict(steps=state.step, size=APP_TRAIN_SIZE, wall_s=wall,
+                       launches=counts, pth_bytes=os.path.getsize(pth),
+                       reloaded_bit_identical=sa.keys() == sb.keys() and all(
+                           torch.equal(sa[k], sb[k]) for k in sa))
+        total = {k: total[k] + counts[k] for k in total}
+        if not trained["reloaded_bit_identical"] or state.step != 2:
+            fails.append("train CLI: the exported .pth reloads other weights")
+        if counts != want:
+            fails.append(f"train CLI launches {counts} != {want}")
+        del state, back, sa, sb
+
+        eng = engine.VideoDepthEngine(device=device)
+        eng._load_model(encoder, False, "", random_init=True)
+        strat = strategies.select_strategy(
+            source_pixels=seen.shape[1] * seen.shape[2], device=device)
+        kw = dict(input_size=min(size, strat.input_size), fp32=strat.fp32)
+        (depths, _, degraded), wall, counts, hopper = call(
+            lambda _: eng._infer_with_degradation(
+                seen, fps, micro_batch=strat.micro_batch_size, **kw), None)
+        direct, _ = vt.infer_video_depth(
+            eng._model, seen, fps, micro_batch_size=strat.micro_batch_size,
+            **kw)
+        eng_line = dict(strategy=strat.name, degraded=degraded, wall_s=wall,
+                        launches=counts,
+                        bit_identical=bool(np.array_equal(depths, direct)))
+        total = {k: total[k] + counts[k] for k in total}
+        want = {k: v * n_windows for k, v in PER_WINDOW.items()}
+        if (degraded or not eng_line["bit_identical"]
+                or strat.name != "cuda_direct" or counts != want or not hopper):
+            fails.append(f"engine: {eng_line}")
+        del eng, depths, direct
+    finally:
+        for owner, name, original in reversed(restore):
+            setattr(owner, name, original)
+        shutil.rmtree(work)
+    emit(phase="apps", nvidia_smi=smi(),
+         encoder=encoder, size=size, host_libs_missing=missing,
+         stood_in=stood_in, offline_cli=offline, streaming_cli=stream,
+         benchmark_infer=bench, train_cli=trained, engine=eng_line,
+         launches=total)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return total
+
+
 def phase_int8(model):
     """K11's path: ``ops.quant.int8_linear`` at the encoder's qkv shape (32
     x 1370 tokens, 1024 -> 3072) on vitl's first qkv weight and bias, with
@@ -1954,11 +2255,12 @@ def main() -> int:
     model = fp32_vitl()
     nested = phase_nested_block(model)
     train = phase_train()
+    apps = phase_apps()
     int8 = phase_int8(model)
     probes = phase_probes()
     phase_host_sync(cast, frames)
     paths = (window, stream, vits, fused, fused_stream, cross, nested, train,
-             int8, probes)
+             apps, int8, probes)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     idle = [k for k, n in launches.items() if not n]
     if idle:

@@ -1,5 +1,6 @@
 """The port's host-side copies equal their JAX-package originals, and the port
-imports neither JAX nor ``vda_tpu``."""
+imports neither JAX, ``vda_tpu``, the JAX apps (``apps``) nor the JAX
+benchmark front-end (``benchmark.infer``)."""
 
 import ast
 import dataclasses
@@ -16,6 +17,7 @@ from vda_tpu.infer.windowed import window_source_indices as jwindows
 from vda_tpu.ops import pallas_attention as jpallas_attention
 from vda_tpu.ops import pallas_resize as jpallas_resize
 from vda_tpu.ops import resize as jresize
+from vda_tpu.utils import io as jio
 
 import vda_tpu_torch.config as tconfig
 from vda_tpu_torch.infer import stitching as tstitch
@@ -26,6 +28,7 @@ from vda_tpu_torch.ops import resize_kernel as tresize_kernel
 from vda_tpu_torch.probes import bench_attn_variants as tk12
 from vda_tpu_torch.probes import bench_int8 as tk13
 from vda_tpu_torch.probes import probe_stream_kernel as tk14
+from vda_tpu_torch.utils import io as tio
 from vda_tpu_torch.utils import transform as ttransform
 from vda_tpu.utils import transform as jtransform
 
@@ -195,12 +198,129 @@ def test_port_imports_no_jax():
             "vda_tpu_torch.probes.bench_attn_sm90, "
             "vda_tpu_torch.probes.bench_attn_proj_sm90, "
             "vda_tpu_torch.probes.bench_gemm_sm90, "
-            "vda_tpu_torch.probes.bench_temporal_sm90, chip_smoke; "
+            "vda_tpu_torch.probes.bench_temporal_sm90, "
+            "vda_tpu_torch.utils.io, vda_tpu_torch.apps.run, "
+            "vda_tpu_torch.apps.run_streaming, "
+            "vda_tpu_torch.apps.benchmark_infer, vda_tpu_torch.apps.train, "
+            "vda_tpu_torch.apps.engine, vda_tpu_torch.apps.engine.engine, "
+            "vda_tpu_torch.apps.engine.strategies, "
+            "vda_tpu_torch.apps.engine.exr_to_prores, "
+            "vda_tpu_torch.apps.colab_processor, vda_tpu_torch.apps.app, "
+            "chip_smoke; "
             "bad = [m for m in sys.modules if m in ('jax', 'vda_tpu', "
-            "'optax', 'orbax') or m.startswith(('jax.', 'vda_tpu.', "
-            "'optax.', 'orbax.'))]; print(bad); "
+            "'optax', 'orbax', 'apps', 'benchmark.infer') or "
+            "m.startswith(('jax.', 'vda_tpu.', 'optax.', 'orbax.', "
+            "'apps.', 'benchmark.infer.'))]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+FORBIDDEN = ("jax", "vda_tpu", "optax", "orbax", "apps", "benchmark.infer")
+
+
+def _imports(path):
+    """Every module a source file imports, at any depth of its AST."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path}: relative import"
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for d, _, files in os.walk(os.path.join(REPO, "vda_tpu_torch")):
+        yield from (os.path.join(d, f) for f in sorted(files)
+                    if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_imports_nothing_of_jax(path):
+    """No import in the port's source or ``chip_smoke.py``, also inside a
+    function, names JAX, the JAX package, its apps or its benchmark
+    front-end."""
+    bad = [m for m in _imports(path)
+           if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
+    assert not bad, bad
+
+
+# --- utils/io.py -----------------------------------------------------------
+
+@pytest.mark.parametrize("v", [-3, 0, 1, 2, 517, 518, 1279])
+def test_ensure_even_equal(v):
+    assert tio.ensure_even(v) == jio.ensure_even(v)
+
+
+@pytest.mark.parametrize("is_depths,grayscale", [(False, False),
+                                                 (True, False),
+                                                 (True, True)])
+def test_visualize_equal(is_depths, grayscale):
+    rng = np.random.default_rng(1)
+    frames = (rng.random((3, 6, 7, 3)) * 255).astype(np.uint8) if \
+        not is_depths else rng.random((3, 6, 7)).astype(np.float32) * 4
+    got = list(tio._visualize(frames, is_depths, grayscale))
+    ref = list(jio._visualize(frames, is_depths, grayscale))
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(g, r)
+
+
+def test_npz_ply_and_exr_writers_equal(tmp_path):
+    """save_depths_npz, _write_ply, save_point_clouds and
+    save_depth_exr_sequence write the same bytes."""
+    rng = np.random.default_rng(2)
+    depths = rng.random((2, 5, 6)).astype(np.float32) * 3 + 0.5
+    frames = (rng.random((2, 5, 6, 3)) * 255).astype(np.uint8)
+    for mod, name in ((jio, "j"), (tio, "t")):
+        d = tmp_path / name
+        d.mkdir()
+        mod.save_depths_npz(str(d / "d.npz"), depths)
+        mod._write_ply(str(d / "p.ply"), depths.reshape(-1, 3),
+                       frames.reshape(-1, 3)[:20])
+        mod.save_point_clouds(str(d / "pc"), frames, depths, 470.4, 400.0)
+        mod.save_depth_exr_sequence(str(d / "exr"), depths)
+    np.testing.assert_array_equal(np.load(tmp_path / "t" / "d.npz")["depths"],
+                                  np.load(tmp_path / "j" / "d.npz")["depths"])
+    for rel in ["p.ply", "pc/point0000.ply", "pc/point0001.ply"] + [
+            f"exr/{f}" for f in sorted(os.listdir(tmp_path / "j" / "exr"))]:
+        assert (tmp_path / "t" / rel).read_bytes() == \
+            (tmp_path / "j" / rel).read_bytes(), rel
+
+
+@pytest.mark.parametrize("args", [(-1, -1, -1), (5, -1, -1), (-1, 4, -1),
+                                  (-1, -1, 60), (7, 6, 51)])
+def test_read_video_frames_equal(tmp_path, args):
+    """(process_length, target_fps, max_res) on a synthesised 12 fps clip."""
+    import cv2
+
+    path = str(tmp_path / "clip.mp4")
+    rng = np.random.default_rng(0)
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 12, (90, 70))
+    base = (rng.random((70, 90, 3)) * 255).astype(np.uint8)
+    for i in range(20):
+        w.write(np.roll(base, i * 2, axis=1)[:, :, ::-1].copy())
+    w.release()
+    got, got_fps = tio.read_video_frames(path, *args)
+    ref, ref_fps = jio.read_video_frames(path, *args)
+    assert got_fps == ref_fps
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_save_video_equal(tmp_path):
+    rng = np.random.default_rng(3)
+    depths = rng.random((4, 16, 16)).astype(np.float32)
+    for mod, name in ((jio, "j.mp4"), (tio, "t.mp4")):
+        mod.save_video(depths, str(tmp_path / name), fps=8, is_depths=True)
+    a, _ = tio.read_video_frames(str(tmp_path / "t.mp4"))
+    b, _ = jio.read_video_frames(str(tmp_path / "j.mp4"))
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (4, 16, 16, 3)

@@ -17,9 +17,10 @@ a ring in which entry ids map to rows deterministically (``_row``).  The
 value is the JAX package's, not its TPU layout: buffers are not padded to a
 row tile, the context is gathered with ``index_select`` on the 31 rows
 instead of a one-hot product, and the new rows are written into the
-buffers in place.  The ring/direct/slide flavors, ``submit_group``, the
-tensor-parallel mesh and the ``VDA_STREAM_*`` environment knobs are not
-ported: ``ctx_kernel`` and ``cache_dtype`` are arguments only.
+buffers in place.  ``submit_group`` runs k frames in one call, as JAX's
+does.  The ring/direct/slide flavors, the tensor-parallel mesh and the
+``VDA_STREAM_*`` environment knobs are not ported: ``ctx_kernel`` and
+``cache_dtype`` are arguments only.
 
 ``submit`` returns without waiting for the device, as JAX's does: the frame
 and the context row ids reach the card by non-blocking copies from pinned
@@ -36,6 +37,10 @@ import numpy as np
 import torch
 
 from vda_tpu_torch.config import INFER_LEN, STREAM_GAP, STREAM_MAX_CACHE
+from vda_tpu_torch.models.dpt import (
+    dpt_head_temporal_stage,
+    dpt_head_temporal_tail,
+)
 from vda_tpu_torch.models.vda import (
     VideoDepthAnything,
     forward_depth,
@@ -177,6 +182,49 @@ def _stream_step(model, frame_u8, buffers, scales, ctx_rows, net_hw, out_hw,
 
 
 @torch.no_grad()
+def _stream_step_group(model, frames_u8, buffers, ctx_rows, held_at, net_hw,
+                       out_hw, dtype, attn_impl, cache_kind, fuse_proj):
+    """k causal steps in one call (JAX ``_stream_step_group``): the encoder
+    over the k frames in one batch, the cache-coupled head stage frame by
+    frame in order, and one output tail over the k frames.  Frame j's
+    context is gathered from the buffers at ``ctx_rows[j]``; then each
+    ``(position, i)`` of ``held_at[j]`` takes the new rows of the group's
+    frame i < j, which are held here and not written (the buffers are only
+    read).  Returns (depths (k, H, W) fp32, each frame's flat new rows,
+    each (BHW, 1, C))."""
+    cfg = model.cfg
+    x = preprocess_frames(frames_u8, net_hw, dtype=dtype)[None]
+    feats = forward_features(model, x, attn_impl, fuse_proj)
+    kernels, ln_kernel = kernel_set(attn_impl)
+    h, w = x.shape[2:4]
+    patch_hw = (h // cfg.vit.patch_size, w // cfg.vit.patch_size)
+    stage_outs, held = [], []
+    for j in range(frames_u8.shape[0]):
+        feats_j = [(t[j:j + 1], None if c is None else c[j:j + 1])
+                   for t, c in feats]
+        ctx = []
+        for i, buf in enumerate(buffers):
+            c = buf.index_select(1, ctx_rows[j]).to(dtype)
+            for pos, src in held_at[j]:
+                c[:, pos] = held[src][i][:, 0]
+            ctx.append(c)
+        if cache_kind == "kv":
+            ctx = [(ctx[2 * i], ctx[2 * i + 1]) for i in range(len(ctx) // 2)]
+        stage_out, rows = dpt_head_temporal_stage(
+            model.head, feats_j, patch_hw, 1, cfg,
+            cached_hidden_state_list=ctx, cache_kind=cache_kind,
+            kernels=kernels, ln_kernel=ln_kernel)
+        stage_outs.append(stage_out)
+        held.append(_leaves(rows, cache_kind))
+    batched = tuple(torch.cat([s[i] for s in stage_outs]) for i in range(3))
+    depth = dpt_head_temporal_tail(model.head, batched, patch_hw,
+                                   micro_batch_size=len(stage_outs))
+    depth = torch.relu(resize_bilinear(depth, (h, w), align_corners=True))
+    depths = resize_bilinear(depth.float(), out_hw, align_corners=True)
+    return depths[..., 0], held
+
+
+@torch.no_grad()
 def _write_step(buffers, new_rows, write_pos: int) -> None:
     """Write each new (BHW, 1, C) row into its buffer at ``write_pos``, in
     place."""
@@ -290,6 +338,46 @@ class StreamingDepth:
         self._commit(rows, _row(new_id))
         self.id, self.order = step_id, order
         return depth
+
+    def submit_group(self, frames) -> torch.Tensor:
+        """Run k frames ((k, H, W, 3) uint8, numpy or tensor) in one call
+        and return their depths as a (k, H, W) fp32 device tensor (JAX
+        ``submit_group``).  The context and eviction bookkeeping of the k
+        steps is replayed exactly and the cache-coupled head stage runs
+        frame by frame, so the cache afterwards is bit-identical to k
+        ``submit`` calls; the encoder and the output tail run batched over
+        the k frames, so the depths agree with ``submit``'s to the order of
+        summation.  The new rows are written once the group has run.  An
+        int8 cache or ``ctx_kernel`` runs k ``submit`` calls, as JAX does.
+        The stream must have had its first frame (``submit``)."""
+        if self.net_hw is None:
+            raise RuntimeError("initialize the stream with "
+                               "submit(first_frame) before submit_group")
+        frames = torch.as_tensor(frames)
+        if tuple(frames.shape[1:3]) != self.out_hw:
+            raise ValueError(f"frame size changed mid-stream: "
+                             f"{tuple(frames.shape[1:3])} after {self.out_hw}")
+        if self.cache_dtype == "int8" or self.ctx_kernel:
+            return torch.stack([self.submit(f) for f in frames])
+        # bookkeeping of the k steps on a copy, committed once they have run
+        order = list(self.order)
+        ids, ctx_rows, held_at = [], [], []
+        for j in range(len(frames)):
+            ctx, new_id = _advance_bookkeeping(self.id + 1 + j, order)
+            earlier = {gid: i for i, gid in enumerate(ids)}
+            held_at.append([(pos, earlier[c]) for pos, c in enumerate(ctx)
+                            if c in earlier])
+            ctx_rows.append([_row(c) for c in ctx])
+            ids.append(new_id)
+        depths, held = _stream_step_group(
+            self.model, self._upload_frame(frames), self.buffers,
+            self._upload_rows(torch.tensor(ctx_rows)), held_at, self.net_hw,
+            self.out_hw, self.dtype, self.attn_impl, self.cache_kind,
+            self.fuse_proj)
+        for new_id, rows in zip(ids, held):
+            self._commit(rows, _row(new_id))
+        self.id, self.order = self.id + len(frames), order
+        return depths
 
     def _init_buffers(self, rows) -> None:
         """Zeroed (BHW, 45, C) buffers holding the first frame's rows at
