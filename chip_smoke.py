@@ -27,6 +27,19 @@ with every launch counter set to 0 just before it and read just after:
     stream;
   * ``vits_window``: one 1x32x518x518 vits forward against the all-plain
     path;
+  * ``vitg_window``: one 1x32x518x518 forward of a seeded vitg
+    (``load_model_params("vitg", random_init=True)``: the SwiGLU encoder,
+    24 heads, motion modules at C 1536 on K5 and C 384 on K3) against the
+    all-plain path, launches and their loops asserted, peak memory; the
+    model freed after;
+  * ``rope``: vitl with RoPE motion modules (``pe="rope"``): a window
+    against the all-plain path (K5 in every attention sub-block, K3/K4
+    off), then 48 ``submit`` steps without and with ``ctx_kernel`` (K6
+    off: its gate is APE's), the flavours held to each other and the first
+    frames to an all-plain stream;
+  * ``window_batch``: the vitl video through ``infer_video_depth(
+    window_batch=2)`` against ``window_batch=1`` in turns, each forward's
+    launches those of one window;
   * ``fused_window``: the same vitl video through ``infer_video_depth(
     fuse_proj=True, resize_kernel=True)`` (K7 and K10), then one window
     against the default-kernel and the all-plain forwards, the two timed
@@ -51,7 +64,9 @@ with every launch counter set to 0 just before it and read just after:
     in this process at vitl width with seeded weights (``--random-init``):
     the offline CLI on 40 frames of 518x518 (two windows) with
     ``--save_npz``, bit-identical to ``infer_video_depth`` on the model it
-    loaded (K1 24, K2 54, K3 2, K4 4 a window, on the Hopper code); the
+    loaded (K1 24, K2 54, K3 2, K4 4 a window, on the Hopper code), then
+    with ``--encoder vitg`` and with ``--window-batch 2``, each
+    bit-identical to its direct call; the
     streaming CLI on 12 frames at ``--lookahead`` 1 (depths and cache
     bit-identical to a ``submit`` loop) and 4 (``submit_group``: the cache
     bit-identical, depths within 1e-2), then 4 ``submit`` calls against one
@@ -194,6 +209,15 @@ PER_VITS_WINDOW = {**ZERO, "K1": 12, "K2": 28, "K3": 1, "K5": 6}
 # with fuse_proj and resize_kernel: K7 takes every block's attention half
 # (both norms stay K2), K10 the two upsamples of each 16-frame tail chunk
 PER_FUSED_WINDOW = {**PER_WINDOW, "K1": 0, "K7": 24, "K10": 4}
+# vitg launches a window: K1 its 40 blocks (24 heads of 64); K2 80 block
+# norms + 4 tap norms + 3 a motion module at C 1536 (mm0/mm1: K4's gate
+# stops at 1024, so K5 takes their attention sub-blocks, head width 192);
+# K3 the whole blocks of mm2/mm3 (C 384, 8 heads of 48)
+PER_VITG_WINDOW = {**ZERO, "K1": 40, "K2": 90, "K3": 2, "K5": 4}
+# vitl with RoPE: the JAX gates keep K3, K4 and K6 to APE, so K5 takes all
+# 8 attention sub-blocks of a window and K2 the 3 norms of every module
+PER_ROPE_WINDOW = {**ZERO, "K1": 24, "K2": 64, "K5": 8}
+WINDOW_BATCH = 2  # windows a forward of phase window_batch
 N_FUSED_STREAM = 8
 KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
     "K1": ("cuda", "vda_tpu_torch/csrc/attention_qkv.cu",
@@ -379,15 +403,59 @@ def temporal_by_loop_ok(counts) -> bool:
         "K4": {"sm90": counts["K4"], "sm80": 0}}
 
 
-def k5_k8_by_loop_ok(counts) -> bool:
+def k5_k8_by_loop_ok(counts, k5_loops=None) -> bool:
     """Every K5 and K8 launch since the counters were reset (bf16 on every
-    path) ran the Hopper code."""
+    path) ran the Hopper code; ``k5_loops``: K5's launches by loop where
+    ``tiny_seq_kernel.loop_of`` sends a shape elsewhere (vitg's head width
+    192)."""
     from vda_tpu_torch.ops import segment_kernel, tiny_seq_kernel
 
-    return (tiny_seq_kernel.launches_by_loop == {"sm90": counts["K5"],
-                                                 "sm80": 0}
+    want = {"sm90": counts["K5"], "sm80": 0} if k5_loops is None \
+        else {"sm90": 0, "sm80": 0, **k5_loops}
+    return (tiny_seq_kernel.launches_by_loop == want
             and segment_kernel.launches_by_loop == {"sm90": counts["K8"],
                                                     "sm80": 0})
+
+
+def vitg_k5_loops(n_windows: int = 1) -> dict:
+    """K5's launches by loop in ``n_windows`` vitg windows: its 4 a window
+    at (1369 | 361, 32, 1536), all on the code the C entry point reports
+    for head width 192."""
+    from vda_tpu_torch.ops import tiny_seq_kernel as k5
+
+    return {k5.loop_of(torch.bfloat16, 32, 1536, 8):
+            PER_VITG_WINDOW["K5"] * n_windows}
+
+
+def random_temporal_block(c: int, g):
+    """A motion module's transformer block at width ``c`` (8 heads of
+    c / 8, APE) on the card, its weights drawn from ``g`` as ``init_random``
+    draws a model's: fan-in uniform linears, unit LayerNorms."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch.models.temporal import TemporalTransformerBlock
+    from vda_tpu_torch.ops.layers import Linear, Norm
+
+    blk = TemporalTransformerBlock(c, vt.get_config("vitg"), device="cuda")
+    blk.requires_grad_(False)
+    for m in blk.modules():
+        if isinstance(m, Norm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, Linear):
+            bound = m.weight.shape[1] ** -0.5
+            m.weight.uniform_(-bound, bound, generator=g)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=g)
+    return blk
+
+
+def freed(ref, what: str) -> None:
+    """Raises if the model behind the weak reference ``ref`` outlived the
+    caller's last reference to it, then returns its memory to the card."""
+    gc.collect()
+    if ref() is not None:
+        raise AssertionError(f"{what} outlived its phase")
+    torch.cuda.empty_cache()
 
 
 def gemm_by_loop_ok(counts, loops, since=None) -> bool:
@@ -493,19 +561,23 @@ def phase_kernels(model):
               mma_sync=lambda: k12.attn(qkv, h, d ** -0.5, "mma_sync"))
 
     b, n, h, d = 32, 1370, 16, 64
-    for shape in ((32, 1370, 16), (1, 1370, 16), (32, 1370, 6)):
+    # then the vitg window (24 heads) and the vitl window batch of 2
+    for shape in ((32, 1370, 16), (1, 1370, 16), (32, 1370, 6),
+                  (32, 1370, 24), (64, 1370, 16)):
         k1_case(*shape)
-    # K2: the encoder LayerNorm (eps 1e-6) and the mm0 ff_norm (eps 1e-5)
-    for shape, eps in (((32, 1370, 1024), 1e-6), ((1369, 32, 1024), 1e-5)):
+    # K2: the encoder LayerNorm (eps 1e-6) and the mm0 ff_norm (eps 1e-5),
+    # at vitl's width 1024, then at vitg's 1536
+    for shape, eps in (((32, 1370, 1024), 1e-6), ((1369, 32, 1024), 1e-5),
+                       ((32, 1370, 1536), 1e-6), ((1369, 32, 1536), 1e-5)):
         x = (torch.randn(*shape, device="cuda", generator=g) * 2 + 0.5).to(bf)
-        w = torch.randn(1024, device="cuda", generator=g)
-        b_ = torch.randn(1024, device="cuda", generator=g)
-        rows = x.numel() // 1024
+        c = shape[-1]
+        w = torch.randn(c, device="cuda", generator=g)
+        b_ = torch.randn(c, device="cuda", generator=g)
         check("K2", shape, lambda: k2.fused_layer_norm(x, w, b_, eps),
               lambda fp32: k2.layer_norm_reference(
                   x.float() if fp32 else x, w, b_, eps), True, TOL["K2"],
-              reps=20, cost=(2 * x.numel() * 2 + 2 * 1024 * 4, 8 * x.numel()),
-              library=lambda: F.layer_norm(x, (1024,), w.to(bf), b_.to(bf),
+              reps=20, cost=(2 * x.numel() * 2 + 2 * c * 4, 8 * x.numel()),
+              library=lambda: F.layer_norm(x, (c,), w.to(bf), b_.to(bf),
                                            eps))
         del x
     # K3 at mm3 and mm2, (5476, 32, 256) and (1369, 32, 256); K4 at mm0's
@@ -522,8 +594,12 @@ def phase_kernels(model):
     blk3, blk0 = blks[3], blks[0]
     pe3 = blk3.attention_blocks[0].pos_encoder.pe[0]
     pe0 = blk0.attention_blocks[0].pos_encoder.pe[0]
-    for i, bd in ((3, 5476), (2, 1369)):
-        blk, t, c = blks[i], 32, 256
+    # vitg's mm3 and mm2 (C 384, 8 heads of 48) on a seeded block of that
+    # width: the chain
+    wide = random_temporal_block(384, g)
+    for blk, bd, c in ((blks[3], 5476, 256), (blks[2], 1369, 256),
+                       (wide, 5476, 384), (wide, 1369, 384)):
+        t = 32
         pe = blk.attention_blocks[0].pos_encoder.pe[0]
         h3 = torch.randn(bd, t, c, device="cuda", generator=g).to(bf)
         sw = bt.split_weights(blk, t, pe)
@@ -537,6 +613,7 @@ def phase_kernels(model):
               old=lambda: bt.variant("sm80", blk, h3, pe, True),
               split=lambda: bt.split_path(sw, h3, True))
         del h3, sw
+    del wide
     for i, bd in ((0, 1369), (1, 361)):
         blk, t, c = blks[i], 32, 1024
         pe = blk.attention_blocks[0].pos_encoder.pe[0]
@@ -563,13 +640,15 @@ def phase_kernels(model):
     # same grid (floor_ms); repeated bit for bit; fp32 on the old kernel
     from vda_tpu_torch.probes import bench_short_attn_sm90 as bsa
 
-    def k5_case(bd, t, c, dtype, heads=8):
+    def k5_case(bd, t, c, dtype, heads=8, loop=None):
+        """``loop``: the code the shape must run (default: "sm90" in bf16,
+        else "sm80")."""
         qkv = torch.randn(bd, t, 3 * c, device="cuda", generator=g).to(dtype)
         q, k, v = qkv.split(c, dim=-1)
         dh = c // heads
         qh, kh, vh = (x.reshape(bd, t, heads, dh).transpose(1, 2)
                       for x in (q, k, v))
-        loop = "sm90" if dtype == bf else "sm80"
+        loop = loop or ("sm90" if dtype == bf else "sm80")
         if k5.loop_of(dtype, t, c, heads) != loop:
             raise AssertionError(f"K5 at {(bd, t, c)} {dtype} is not on the "
                                  f"{loop} code")
@@ -607,8 +686,15 @@ def phase_kernels(model):
 
     for shape in ((5476, 32, 64), (1369, 32, 64), (1369, 32, 192),
                   (1369, 1, 1024), (361, 1, 1024), (1369, 1, 256),
-                  (5476, 1, 256)):
+                  (5476, 1, 256),
+                  # the RoPE vitl window's four modules (K3/K4 refuse RoPE)
+                  (1369, 32, 1024), (361, 32, 1024), (1369, 32, 256),
+                  (5476, 32, 256)):
         k5_case(*shape, bf)
+    # vitg's mm0 and mm1 (head width 192) on the code the C entry point
+    # reports for them
+    for shape in ((1369, 32, 1536), (361, 32, 1536)):
+        k5_case(*shape, bf, loop=k5.loop_of(bf, 32, 1536, 8))
     k5_case(37, 7, 256, torch.float32)  # ragged T, fp32
 
     # K6 at the shapes of a streaming step with ctx_kernel (vitl, 31 rows:
@@ -1335,6 +1421,247 @@ def phase_vits_window(frames):
     return counts
 
 
+def phase_vitg_window(frames):
+    """One seeded vitg 1x32x518x518 bf16 window (``load_model_params("vitg",
+    random_init=True)``, cast once) with the kernels against the all-plain
+    forward (bench.py's test): launches and the loop of each asserted, K5
+    on the loop ``loop_of`` reports at head width 192; window and plain ms,
+    peak memory of each.  The model is freed at the end: the plain K1 twin
+    at 24 heads alone holds ~5.8 GB of fp32 scores a call.  Returns the
+    launches of the forward."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, model = vt.load_model_params("vitg", random_init=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
+                          (SIZE, SIZE), dtype=torch.bfloat16)
+    vt.forward(model, x)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    got = vt.forward(model, x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    k5_loops = vitg_k5_loops()
+    if counts != PER_VITG_WINDOW or not by_loop_ok(counts) \
+            or not temporal_by_loop_ok(counts) \
+            or not k5_k8_by_loop_ok(counts, k5_loops):
+        raise AssertionError(f"vitg launches {counts} != {PER_VITG_WINDOW}, "
+                             "or a K1 launch missed the Hopper loop, or a K3 "
+                             "launch the Hopper chain, or K5's launches "
+                             f"their loop {k5_loops}")
+    window_ms = time_ms(lambda: vt.forward(model, x), reps=3)
+    plain_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
+                       reps=1)
+    torch.cuda.reset_peak_memory_stats()
+    ref = vt.forward(model, x, attn_impl="plain")
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    max_rel, agree = agreement(ref, got)
+    emit(phase="vitg_window", nvidia_smi=smi(), params=n_params,
+         load_s=load_s, max_rel=max_rel, agree_125=agree,
+         window_ms=window_ms, window_ms_per_frame=window_ms / 32,
+         plain_window_ms=plain_ms, plain_window_ms_per_frame=plain_ms / 32,
+         max_memory_allocated=peak, plain_max_memory_allocated=plain_peak,
+         launches=counts, k5_by_loop=k5_loops,
+         depth_std=float(got.float().std()))
+    if not (max_rel < 1e-2 and agree > 0.999):
+        raise AssertionError(f"vitg kernel vs plain forward: max_rel "
+                             f"{max_rel}, agree_125 {agree}")
+    gone = weakref.ref(model)
+    del model, got, ref, x
+    freed(gone, "the vitg model")
+    return counts
+
+
+def phase_rope(frames):
+    """vitl with RoPE motion modules (``cfg.pe="rope"``, seeded weights
+    cast once): one 1x32x518x518 window against the all-plain forward,
+    then N_STREAM ``StreamingDepth.submit`` steps without and with
+    ``ctx_kernel``, stepped in turns, launch counts asserted step by step
+    (K6's gate refuses RoPE, so the ``ctx_kernel`` stream runs the plain kv
+    path), the flavours within 2e-2 of each other at every step, the first
+    4 steps against an all-plain stream.  Returns the launches of the
+    phase."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.ops import tiny_seq_kernel as k5
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    cfg = vt.get_config("vitl", pe="rope")
+    _, model = vt.load_model_params("vitl", cfg=cfg, random_init=True)
+    model.requires_grad_(False)
+    x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
+                          (SIZE, SIZE), dtype=torch.bfloat16)
+    vt.forward(model, x)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = vt.forward(model, x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # K5 at mm0/mm1 (C 1024, 8 heads of 128) and mm2/mm3 (C 256, of 32)
+    k5_loops = {"sm90": 0, "sm80": 0}
+    for c in (1024, 1024, 256, 256):
+        k5_loops[k5.loop_of(torch.bfloat16, 32, c, 8)] += 2
+    if counts != PER_ROPE_WINDOW or not by_loop_ok(counts) \
+            or not temporal_by_loop_ok(counts) \
+            or not k5_k8_by_loop_ok(counts, k5_loops):
+        raise AssertionError(f"RoPE window launches {counts} != "
+                             f"{PER_ROPE_WINDOW}, or a K1 launch missed the "
+                             "Hopper loop, or K5's launches their loops "
+                             f"{k5_loops}")
+    total = dict(counts)
+    window_ms = time_ms(lambda: vt.forward(model, x), reps=3)
+    plain_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
+                       reps=2)
+    max_rel, agree = agreement(vt.forward(model, x, attn_impl="plain"), got)
+    window = dict(max_rel=max_rel, agree_125=agree, window_ms=window_ms,
+                  window_ms_per_frame=window_ms / 32, plain_window_ms=plain_ms,
+                  plain_window_ms_per_frame=plain_ms / 32, launches=counts,
+                  k5_by_loop=k5_loops)
+    if not (max_rel < 1e-2 and agree > 0.999):
+        raise AssertionError(f"RoPE window kernel vs plain forward: max_rel "
+                             f"{max_rel}, agree_125 {agree}")
+    del got, x
+
+    streams = {"kv": vt.StreamingDepth(model),
+               "ctx": vt.StreamingDepth(model, ctx_kernel=True)}
+    step_ms = {name: [] for name in streams}
+    first = {name: [] for name in streams}
+    worst = 0.0
+    for i, f in enumerate(frames[:N_STREAM]):
+        depth = {}
+        for name, stream in streams.items():
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            depth[name] = stream.submit(f)
+            torch.cuda.synchronize()
+            step_ms[name].append(1e3 * (time.perf_counter() - t0))
+            counts = ops.launch_counts()
+            want = {**PER_STEP, "K5": 8 if i == 0 else 0}
+            if counts != want or not by_loop_ok(counts) or \
+                    not k5_k8_by_loop_ok(counts):
+                raise AssertionError(f"RoPE stream {name} step {i}: "
+                                     f"launches {counts} != {want}, or a "
+                                     "K1 launch missed the Hopper loop, or "
+                                     "a K5 launch the Hopper code")
+            total = {k: total[k] + counts[k] for k in total}
+            d = depth[name]
+            if d.shape != (SIZE, SIZE) or not torch.isfinite(d).all():
+                raise AssertionError(f"RoPE stream {name} step {i}: depth "
+                                     f"{tuple(d.shape)} not finite")
+            if i < 4:
+                first[name].append(d.cpu())
+        r = rel(depth["kv"], depth["ctx"])[1]
+        worst = max(worst, r)
+        if not r < 2e-2:
+            raise AssertionError(f"RoPE step {i}: ctx_kernel vs kv max_rel "
+                                 f"{r}")
+        if streams["kv"].order != streams["ctx"].order:
+            raise AssertionError(f"RoPE step {i}: cache order differs")
+    plain = vt.StreamingDepth(model, attn_impl="plain")
+    vs_plain = []
+    for i, f in enumerate(frames[:4]):
+        ref = plain.submit(f).cpu()
+        for name in streams:
+            max_rel, agree = agreement(ref, first[name][i])
+            vs_plain.append(dict(step=i, stream=name, max_rel=max_rel,
+                                 agree_125=agree))
+            if not (max_rel < 1e-2 and agree > 0.999):
+                raise AssertionError(f"RoPE stream {name} step {i} vs "
+                                     f"plain: max_rel {max_rel}, agree "
+                                     f"{agree}")
+    steady = {name: float(np.median(ms[12:])) for name, ms in step_ms.items()}
+    emit(phase="rope", nvidia_smi=smi(), window=window,
+         stream=dict(frames=N_STREAM,
+                     first_frame_ms={n: ms[0] for n, ms in step_ms.items()},
+                     steady_ms_per_frame=steady,
+                     steady_steps=f"12-{N_STREAM - 1} (median)",
+                     step_ms=step_ms, max_rel_ctx_vs_kv=worst,
+                     vs_plain=vs_plain),
+         launches=total)
+    gone = weakref.ref(model)
+    del model, streams, stream, plain
+    freed(gone, "the RoPE vitl model")
+    return total
+
+
+def phase_window_batch(model, frames):
+    """The vitl video (N_FRAMES frames: three windows) through
+    ``infer_video_depth(window_batch=WINDOW_BATCH)`` against
+    ``window_batch=1``: depths by bench.py's test, each forward's launches
+    those of one window (at batch 2; the second forward's pad window
+    repeats the last), end-to-end ms a frame of both, timed in turns (1, 2,
+    2, 1).  Returns the launches of the counted batched run."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.infer import windowed
+
+    real = windowed.forward
+    forwards = []
+
+    def counted(model_, x, **kw):
+        before = ops.launch_counts()
+        out = real(model_, x, **kw)
+        after = ops.launch_counts()
+        forwards.append((x.shape[0], {k: after[k] - before[k] for k in after}))
+        return out
+
+    def run(wb):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, _ = vt.infer_video_depth(model, frames, 30.0, window_batch=wb)
+        torch.cuda.synchronize()
+        return d, 1e3 * (time.perf_counter() - t0) / len(frames)
+
+    run(WINDOW_BATCH)  # warm-up at the batched shapes
+    windowed.forward = counted
+    try:
+        ops.reset_launch_counts()
+        batched, _ = run(WINDOW_BATCH)
+        counts = ops.launch_counts()
+    finally:
+        windowed.forward = real
+    n_windows = len(range(0, len(frames), 22))
+    n_forwards = -(-n_windows // WINDOW_BATCH)
+    ok = (len(forwards) == n_forwards and by_loop_ok(counts)
+          and temporal_by_loop_ok(counts)
+          and all(b == WINDOW_BATCH and c == PER_WINDOW
+                  for b, c in forwards))
+    ms = {1: [], WINDOW_BATCH: []}
+    single = None
+    for wb in (1, WINDOW_BATCH, WINDOW_BATCH, 1):
+        d, t = run(wb)
+        ms[wb].append(t)
+        if wb == 1:
+            single = d
+    max_rel, agree = agreement(torch.from_numpy(single),
+                               torch.from_numpy(batched))
+    emit(phase="window_batch", nvidia_smi=smi(), frames=len(frames),
+         windows=n_windows, window_batch=WINDOW_BATCH, forwards=len(forwards),
+         per_forward=[c for _, c in forwards], launches=counts,
+         ms_per_frame={str(k): v for k, v in ms.items()},
+         max_rel=max_rel, agree_125=agree)
+    if not ok:
+        raise AssertionError(f"window_batch forwards {forwards}: each must "
+                             f"take {WINDOW_BATCH} windows and launch "
+                             f"{PER_WINDOW} on the Hopper loops")
+    if batched.shape != single.shape or not (max_rel < 1e-2
+                                             and agree > 0.999):
+        raise AssertionError(f"window_batch {WINDOW_BATCH} vs 1: max_rel "
+                             f"{max_rel}, agree_125 {agree}")
+    return counts
+
+
 def phase_fused_window(model, frames):
     """The vitl video again through ``infer_video_depth(fuse_proj=True,
     resize_kernel=True)``, launch counts asserted per window; then one
@@ -1853,6 +2180,38 @@ def phase_apps():
                          "the Hopper loops")
         del model, depths, direct, npz
 
+        # the same clip through a seeded vitg, then through vitl with its
+        # two windows in one forward (--window-batch 2), each against its
+        # direct call
+        extra_cli = {}
+        for name, argv, kw, per, n_fwd in (
+                ("vitg", ["--encoder", "vitg", "--random-init", "--device",
+                          device], {}, PER_VITG_WINDOW, n_windows),
+                ("window_batch_2", ["--window-batch", "2"] + common,
+                 dict(window_batch=2), PER_WINDOW, -(-n_windows // 2))):
+            depths, wall, counts, _ = call(run.main, [
+                "--input_video", video, "--output_dir",
+                os.path.join(work, name), "--input_size", str(size)] + argv)
+            k5_loops = vitg_k5_loops(n_windows) if name == "vitg" else None
+            loops_ok = (by_loop_ok(counts) and temporal_by_loop_ok(counts)
+                        and k5_k8_by_loop_ok(counts, k5_loops))
+            model = loaded.pop()
+            direct, _ = vt.infer_video_depth(model, seen, fps,
+                                             input_size=size, **kw)
+            want = {k: v * n_fwd for k, v in per.items()}
+            extra_cli[name] = dict(wall_s=wall, load_s=load_s[-1],
+                                   launches=counts,
+                                   bit_identical=bool(
+                                       np.array_equal(depths, direct)))
+            total = {k: total[k] + counts[k] for k in total}
+            if not extra_cli[name]["bit_identical"]:
+                fails.append(f"offline CLI {name}: depths differ from the "
+                             "direct call")
+            if counts != want or not loops_ok:
+                fails.append(f"offline CLI {name}: launches {counts} != "
+                             f"{want}, or off their loops")
+            del model, depths, direct
+
         stream = {}
         out2 = os.path.join(work, "stream")
         runs = {}
@@ -1974,7 +2333,10 @@ def phase_apps():
         shutil.rmtree(work)
     emit(phase="apps", nvidia_smi=smi(),
          encoder=encoder, size=size, host_libs_missing=missing,
-         stood_in=stood_in, offline_cli=offline, streaming_cli=stream,
+         stood_in=stood_in, offline_cli=offline,
+         offline_cli_vitg=extra_cli["vitg"],
+         offline_cli_window_batch_2=extra_cli["window_batch_2"],
+         streaming_cli=stream,
          benchmark_infer=bench, train_cli=trained, engine=eng_line,
          launches=total)
     if fails:
@@ -2242,13 +2604,14 @@ def main() -> int:
     cast = phase_weights(model)
     gone = weakref.ref(model)
     del model
-    gc.collect()
-    if gone() is not None:
-        raise AssertionError("the fp32 vitl outlived its phases")
+    freed(gone, "the fp32 vitl")
     window, frames = phase_main_path(cast)
     phase_cross_check(cast, frames)
     stream = phase_stream(cast, frames[:N_STREAM])
     vits = phase_vits_window(frames)
+    vitg = phase_vitg_window(frames)
+    rope = phase_rope(frames)
+    batched = phase_window_batch(cast, frames)
     fused = phase_fused_window(cast, frames)
     fused_stream = phase_fused_stream(cast, frames[:N_FUSED_STREAM])
     cross = phase_cross_attention()
@@ -2259,8 +2622,8 @@ def main() -> int:
     int8 = phase_int8(model)
     probes = phase_probes()
     phase_host_sync(cast, frames)
-    paths = (window, stream, vits, fused, fused_stream, cross, nested, train,
-             apps, int8, probes)
+    paths = (window, stream, vits, vitg, rope, batched, fused, fused_stream,
+             cross, nested, train, apps, int8, probes)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     idle = [k for k, n in launches.items() if not n]
     if idle:

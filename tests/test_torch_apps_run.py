@@ -111,13 +111,57 @@ def test_run_cli_random_init_metric(test_video, tmp_path):
                                    b"element vertex 6300\n")
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--window-batch", "2"],
+@pytest.mark.parametrize("flags", [["--tp", "2"],
                                    ["--checkpoint", "params.npz"]],
-                         ids=["tp", "window_batch", "npz"])
+                         ids=["tp", "npz"])
 def test_run_cli_refuses_unported(flags, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         trun.main(["--input_video", str(tmp_path / "x.mp4"), "--device",
                    "cpu", "--random-init"] + flags)
+
+
+def test_run_cli_window_batch(loaders, test_video, tmp_path):
+    """``--window-batch 2`` on the CPU: the clip's two windows in one
+    forward give the depths of one window a forward, within ``TOL``."""
+    flags = ["--input_video", test_video, "--input_size", "56", "--fp32",
+             "--device", "cpu"]
+    one = trun.main(flags + ["--output_dir", str(tmp_path / "wb1")])
+    two = trun.main(flags + ["--output_dir", str(tmp_path / "wb2"),
+                             "--window-batch", "2"])
+    assert two.shape == one.shape == (40, 70, 90)
+    assert rel_err(one, two) <= TOL
+
+
+def test_run_cli_swiglu_rope_model(test_video, tmp_path, monkeypatch):
+    """The tiny model with vitg's SwiGLU encoder and RoPE motion modules
+    (``load_model`` overridden with the config) through the CLI on the
+    CPU: the depths of ``infer_video_depth`` on the model it loaded."""
+    from dataclasses import replace
+
+    from vda_tpu_torch.utils.loader import load_model_params
+
+    cfg = vt.get_config("tiny", pe="rope")
+    cfg = cfg.replace(vit=replace(cfg.vit, ffn_layer="swiglufused"))
+    loaded = []
+
+    def load_model(args):
+        loaded.append(load_model_params(
+            args.encoder, cfg=cfg, random_init=True, cast_bf16=False,
+            device=args.device, generator=torch.Generator().manual_seed(1)))
+        return loaded[-1]
+
+    monkeypatch.setattr(trun, "load_model", load_model)
+    got = trun.main(["--input_video", test_video, "--output_dir",
+                     str(tmp_path), "--encoder", "tiny", "--random-init",
+                     "--device", "cpu", "--input_size", "56", "--fp32",
+                     "--max_len", "8"])
+    _, model = loaded[0]
+    assert hasattr(model.pretrained.blocks[0].mlp, "w12")
+    frames, fps = tio.read_video_frames(test_video, 8)
+    want, _ = vt.infer_video_depth(model, frames, fps, input_size=56,
+                                   fp32=True)
+    assert got.shape == (8, 70, 90) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_example_video_equals_jax(tmp_path):

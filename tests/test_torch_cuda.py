@@ -428,7 +428,7 @@ def test_k6_stream_kv_attention(gen, dtype, bhw, rows, c, heads, n_valid):
     kb[:, ~valid] = float("nan")  # rows that are not valid are never read
     vb[:, ~valid] = float("nan")
     scale = (c // heads) ** -0.5
-    assert stream_kernel.use_kernel(1, c, heads)
+    assert stream_kernel.use_kernel(1, c, heads, "ape")
     loop = "sm90" if dtype == BF and c // heads <= 128 else "sm80"
     assert stream_kernel.loop_of(dtype, c, heads) == loop
     got = _on_loop(lambda: stream_kernel.launches_by_loop, loop,

@@ -133,8 +133,9 @@ def test_k5_and_k6_gates():
                            (32, 4, True)]:
         dh, gw = c // heads, min(c, 512)
         jax_gate = c % gw == 0 and gw % dh == 0 and dh % 8 == 0
-        assert stream_kernel.use_kernel(1, c, heads) == jax_gate == want
-        assert not stream_kernel.use_kernel(2, c, heads)
+        assert stream_kernel.use_kernel(1, c, heads, "ape") == jax_gate \
+            == want
+        assert not stream_kernel.use_kernel(2, c, heads, "ape")
 
 
 def test_wrappers_refuse_other_devices():

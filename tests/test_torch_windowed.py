@@ -52,3 +52,36 @@ def test_plain_and_auto_agree(setup):
     b, _ = vt.infer_video_depth(model, frames[:10], 24, input_size=56,
                                 fp32=True, attn_impl="plain")
     assert rel_err(a, b) < 1e-5
+
+
+def test_window_batch_matches_jax_and_single_windows(setup, monkeypatch):
+    """``window_batch=2`` over 50 frames (three windows, so the second
+    forward carries the last window and its repeat) against JAX's
+    ``window_batch=2`` and the port's one window a forward: each window a
+    sequence of its own in the motion modules, the pad's depths dropped.
+    Within 1e-4 of the depth scale (fp32; the two sides agree to ~1e-5
+    before the stitch, see the module docstring)."""
+    from vda_tpu_torch.infer import windowed as tw
+
+    params, jcfg, model, _ = setup
+    frames = (np.random.default_rng(5).random((50, 70, 90, 3))
+              * 255).astype(np.uint8)
+    ref, _ = jinfer(params, frames, 24, jcfg, input_size=56, fp32=True,
+                    attn_impl="pallas", window_batch=2)
+    one, _ = vt.infer_video_depth(model, frames, 24, input_size=56,
+                                  fp32=True)
+    batches, seen = [], []
+    forward = tw.forward
+
+    def counted(model, x, **kw):
+        batches.append(x.shape[0])
+        return forward(model, x, **kw)
+
+    monkeypatch.setattr(tw, "forward", counted)
+    got, _ = vt.infer_video_depth(model, frames, 24, input_size=56,
+                                  fp32=True, window_batch=2,
+                                  progress=lambda d, n: seen.append((d, n)))
+    assert batches == [2, 2] and seen == [(2, 3), (3, 3)]
+    assert got.shape == ref.shape == (50, 70, 90)
+    assert rel_err(ref, got) < 1e-4
+    assert rel_err(one, got) < 1e-4

@@ -26,14 +26,18 @@ import vda_tpu_torch as vt
 from vda_tpu_torch import config as tconfig
 
 
-def small_configs(features: int = 128):
+def small_configs(features: int = 128, pe: str = "ape",
+                  ffn_layer: str = "mlp"):
     """(JAX ModelConfig, port ModelConfig) of the small kernel-shaped model.
     ``features=256`` gives the head vitl's widths where K10 engages: the
-    output tail's island at 128 channels and refinenet1 at 256."""
-    kw = dict(embed_dim=128, depth=2, num_heads=2, img_size=56)
+    output tail's island at 128 channels and refinenet1 at 256.  ``pe``
+    ("ape" or "rope") encodes the motion modules' positions; ``ffn_layer``
+    "swiglufused" gives the encoder vitg's SwiGLU feed-forward."""
+    kw = dict(embed_dim=128, depth=2, num_heads=2, img_size=56,
+              ffn_layer=ffn_layer)
     head = ("small", features, (128, 128, 640, 640), (0, 0, 1, 1))
-    return (ModelConfig(*head, EncoderConfig(**kw)),
-            tconfig.ModelConfig(*head, tconfig.EncoderConfig(**kw)))
+    return (ModelConfig(*head, EncoderConfig(**kw), pe=pe),
+            tconfig.ModelConfig(*head, tconfig.EncoderConfig(**kw), pe=pe))
 
 
 def nonzero_proj_out(params, rng):
@@ -47,10 +51,10 @@ def nonzero_proj_out(params, rng):
     return params
 
 
-def small_models(seed: int = 0, features: int = 128):
+def small_models(seed: int = 0, features: int = 128, **kw):
     """(JAX params, JAX cfg, port model, port cfg) sharing one set of
-    weights."""
-    jcfg, tcfg = small_configs(features)
+    weights; ``kw``: ``small_configs``'s ``pe`` and ``ffn_layer``."""
+    jcfg, tcfg = small_configs(features, **kw)
     params = init_video_depth_anything(jax.random.PRNGKey(seed), jcfg)
     params = nonzero_proj_out(params, np.random.default_rng(seed))
     model = vt.VideoDepthAnything(tcfg, device="cpu")

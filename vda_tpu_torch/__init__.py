@@ -1,8 +1,10 @@
 """vda_tpu_torch: the PyTorch and CUDA port of ``vda_tpu``.
 
-It runs Video Depth Anything on an NVIDIA Hopper GPU: offline windowed
-inference (``infer_video_depth``, optionally with ``fuse_proj`` and
-``resize_kernel``), causal streaming (``StreamingDepth``), the generic
+It runs Video Depth Anything on an NVIDIA Hopper GPU, every configuration
+of ``config.MODEL_CONFIGS`` (vitg's SwiGLU encoder among them) with APE or
+RoPE motion modules (``pe``): offline windowed inference
+(``infer_video_depth``, optionally with ``fuse_proj``, ``resize_kernel``
+and ``window_batch``), causal streaming (``StreamingDepth``), the generic
 attention library (``models/cross_attention.py``), and training on one
 device: ``video_depth_loss`` (``loss/``), ``make_optimizer`` /
 ``init_train_state`` / ``make_train_step`` (``parallel/train.py``), the

@@ -10,9 +10,10 @@ Weights: a reference ``.pth`` (default ./checkpoints/{metric_}video_depth_
 anything_{enc}.pth, reference run.py:50-54) through
 ``utils/loader.load_model_params``, or ``--random-init`` (seeded weights,
 for pipeline testing).  The model runs on the card unless ``--device cpu``
-asks for the CPU.  ``--tp`` and ``--window-batch`` above 1 are multi-GPU
-work (ROADMAP.md Queue 1, item 9) and the JAX package's ``.npz`` params
-are not read (left out on purpose): each is refused.
+asks for the CPU.  ``--window-batch N`` runs N windows as the batch of
+one forward on that device.  ``--tp`` above 1 is multi-GPU work (ROADMAP.md
+Queue 1, item 9) and the JAX package's ``.npz`` params are not read
+(ROADMAP.md Queue 1, item 11): each is refused.
 """
 
 import argparse
@@ -57,8 +58,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="auto: the hand-written kernels; xla: the "
                              "LayerNorm kernel only; plain: plain PyTorch")
     parser.add_argument("--window-batch", type=int, default=1,
-                        help="independent windows per forward: multi-GPU "
-                             "work, only 1 is served")
+                        help="independent windows batched into one forward")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree: multi-GPU work, only "
                              "1 is served")
@@ -69,13 +69,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """SystemExit for what the port does not serve yet."""
-    if getattr(args, "tp", 1) > 1 or getattr(args, "window_batch", 1) > 1:
-        raise SystemExit("--tp and --window-batch above 1 are multi-GPU "
-                         "work, not ported (ROADMAP.md Queue 1, item 9)")
+    if getattr(args, "tp", 1) > 1:
+        raise SystemExit("--tp above 1 is multi-GPU work, not ported "
+                         "(ROADMAP.md Queue 1, item 9)")
     if (args.checkpoint or "").endswith(".npz"):
         raise SystemExit(f"{args.checkpoint}: the JAX package's .npz params "
-                         "are left out of the port on purpose (ROADMAP.md "
-                         "Queue 1); pass a reference-format .pth")
+                         "are not ported yet (ROADMAP.md Queue 1, item 11); "
+                         "pass a reference-format .pth")
 
 
 def _ensure_example_video(path: str) -> None:
@@ -132,7 +132,8 @@ def main(argv=None):
 
     depths, fps = infer_video_depth(
         model, frames, target_fps, input_size=args.input_size,
-        fp32=args.fp32, attn_impl=args.attn_impl, progress=progress)
+        fp32=args.fp32, attn_impl=args.attn_impl, progress=progress,
+        window_batch=args.window_batch)
     print()
 
     stem = os.path.splitext(os.path.basename(args.input_video))[0]

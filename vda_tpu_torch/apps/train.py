@@ -14,7 +14,7 @@ random weights (``init_random``, a ``torch.Generator`` seeded 0) or a
 reference ``.pth``; ``--export-pth`` saves the trained state dict, which
 has the reference's key layout.  Runs on the card unless ``--device cpu``;
 ``--tp`` above 1 is multi-GPU work (ROADMAP.md Queue 1, item 9) and the JAX
-package's ``.npz`` params are left out on purpose: both are refused.
+package's ``.npz`` params are not ported yet (item 11): both are refused.
 """
 
 import argparse

@@ -5,8 +5,10 @@ device: every window's input is a direct gather of source frames
 (``window_source_indices``, copied), preprocessing and the forward run on
 the device, the final resize to the frame size runs in fp32, depths cross to
 the host in float16 (fp32 with ``fp32=True``), and the host stitches the
-windows (``stitching.stitch_windows``, copied).  The JAX ``mesh`` /
-``window_batch`` fan-out is not ported: it is the multi-GPU work.
+windows (``stitching.stitch_windows``, copied).  ``window_batch`` runs that
+many windows as the batch of one forward on the device, each window its own
+sequence of frames; the JAX ``mesh``, which shards that batch over chips,
+is the multi-GPU work.
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def window_source_indices(n_frames: int) -> np.ndarray:
 def _window_step(model: VideoDepthAnything, frames_u8, net_hw, out_hw,
                  dtype, attn_impl: str, micro_batch_size: int,
                  fuse_proj: bool, resize_kernel: bool):
-    """(1, T, H, W, 3) uint8 window on the device -> (1, T, outH, outW)
+    """(B, T, H, W, 3) uint8 windows on the device -> (B, T, outH, outW)
     depths, fp32 if ``dtype`` is fp32 else float16."""
     x = preprocess_frames(frames_u8, net_hw, dtype=dtype)
     depth = forward(model, x, attn_impl=attn_impl,
@@ -85,6 +87,7 @@ def infer_video_depth(
     progress: Optional[callable] = None,
     fuse_proj: bool = False,
     resize_kernel: bool = False,
+    window_batch: int = 1,
 ):
     """frames: (N, H, W, 3) uint8 RGB.  Returns (depths (N, H, W) fp32, fps).
 
@@ -94,7 +97,10 @@ def infer_video_depth(
     ``fuse_proj`` (K7 for the encoder blocks) and ``resize_kernel`` (K10 for
     the tail's upsamples) are the JAX package's ``VDA_ATTN_FUSE_PROJ`` and
     ``VDA_RESIZE_KERNEL`` switches, off by default as there; both need
-    ``attn_impl="auto"``."""
+    ``attn_impl="auto"``.  ``window_batch``: windows a forward takes, as
+    its batch (JAX's ``window_batch`` on one device); the last batch is
+    filled up by repeating its last window, whose depths are dropped, so
+    every forward has one shape."""
     cfg = model.cfg
     device = next(model.parameters()).device
     n_frames, frame_h, frame_w = frames.shape[:3]
@@ -103,14 +109,21 @@ def infer_video_depth(
     dtype = torch.float32 if fp32 else torch.bfloat16
 
     idx = window_source_indices(n_frames)
+    n_windows = idx.shape[0]
+    wb = max(1, min(window_batch, n_windows))
     host_depths = []
-    for w, window in enumerate(idx):
-        u8 = torch.from_numpy(frames[window][None]).to(device)
+    for start in range(0, n_windows, wb):
+        batch_idx = idx[start:start + wb]
+        n_valid = batch_idx.shape[0]
+        if n_valid < wb:
+            batch_idx = np.concatenate(
+                [batch_idx, batch_idx[-1:].repeat(wb - n_valid, 0)])
+        u8 = torch.from_numpy(frames[batch_idx]).to(device)
         d = _window_step(model, u8, net_hw, (frame_h, frame_w), dtype,
                          attn_impl, micro_batch_size, fuse_proj,
                          resize_kernel)
-        host_depths.extend(d[0].cpu().float().numpy())
+        host_depths.extend(d[:n_valid].flatten(0, 1).cpu().float().numpy())
         if progress is not None:
-            progress(w + 1, len(idx))
+            progress(start + n_valid, n_windows)
     aligned = stitch_windows(host_depths, metric=cfg.metric)
     return np.stack(aligned[:n_frames], axis=0), target_fps

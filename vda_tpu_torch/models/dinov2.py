@@ -1,10 +1,13 @@
 """DINOv2 ViT encoder, PyTorch.
 
-Counterpart of ``vda_tpu/models/dinov2.py`` (inference path, ``ffn_layer``
-"mlp"): conv patch embed, bicubic pos-embed interpolation with the +0.1
-offset, pre-norm blocks with LayerScale, and ``encode`` taps with the final
-norm.  Module names follow the reference state-dict keys.  Tokens are
-(B, N, D) and are not padded: the attention kernel takes N as it is.
+Counterpart of ``vda_tpu/models/dinov2.py``: conv patch embed, bicubic
+pos-embed interpolation with the +0.1 offset, pre-norm blocks with
+LayerScale, and ``encode`` taps with the final norm.  The block's
+feed-forward is the GELU MLP (``ffn_layer="mlp"``) or, for vitg, the SwiGLU
+of ``ffn_layer="swiglufused"`` (``mlp.w12``, d -> 2 hidden, and ``mlp.w3``:
+``w3(silu(x1) * x2)``).  Module names follow the reference state-dict keys.
+Tokens are (B, N, D) and are not padded: the attention kernel takes N as it
+is.
 
 ``kernels=True`` routes the attention through K1 where the JAX gate admits
 it (``attention_kernel.use_kernel``); with ``fuse_proj=True`` as well,
@@ -73,6 +76,20 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, d, device=device)
 
 
+class SwiGLUFFN(nn.Module):
+    """vitg's feed-forward (reference dinov2_layers/swiglu_ffn.py): hidden
+    ``(int(int(d * mlp_ratio) * 2 / 3) + 7) // 8 * 8``, 4096 at d 1536."""
+
+    def __init__(self, d, mlp_ratio, device=None):
+        super().__init__()
+        hidden = (int(int(d * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+        self.w12 = Linear(d, 2 * hidden, device=device)
+        self.w3 = Linear(hidden, d, device=device)
+
+
+FFN_LAYERS = ("mlp", "swiglufused")
+
+
 class Block(nn.Module):
     def __init__(self, cfg: EncoderConfig, device=None):
         super().__init__()
@@ -81,16 +98,19 @@ class Block(nn.Module):
         self.attn = Attention(d, device=device)
         self.ls1 = LayerScale(d, device=device)
         self.norm2 = Norm(d, device=device)
-        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), device=device)
+        if cfg.ffn_layer == "swiglufused":
+            self.mlp = SwiGLUFFN(d, cfg.mlp_ratio, device=device)
+        else:
+            self.mlp = Mlp(d, int(d * cfg.mlp_ratio), device=device)
         self.ls2 = LayerScale(d, device=device)
 
 
 class DinoVisionTransformer(nn.Module):
     def __init__(self, cfg: EncoderConfig, device=None):
         super().__init__()
-        if cfg.ffn_layer != "mlp":
-            raise NotImplementedError(f"ffn_layer {cfg.ffn_layer!r} is not "
-                                      "ported yet (vitg's SwiGLU)")
+        if cfg.ffn_layer not in FFN_LAYERS:
+            raise ValueError(f"ffn_layer must be one of {FFN_LAYERS}, got "
+                             f"{cfg.ffn_layer!r}")
         d = cfg.embed_dim
         self.cfg = cfg
         self.cls_token = nn.Parameter(torch.empty(1, 1, d, device=device))
@@ -161,6 +181,11 @@ def _attention(p: Attention, x, heads: int, kernels: bool):
 
 
 def _mlp(blk: Block, x):
+    """The block's feed-forward: GELU MLP, or SwiGLU ``w3(silu(x1) * x2)``
+    with x1, x2 the halves of ``w12(x)`` (JAX ``_mlp``)."""
+    if isinstance(blk.mlp, SwiGLUFFN):
+        x1, x2 = linear(blk.mlp.w12, x).chunk(2, dim=-1)
+        return linear(blk.mlp.w3, torch.nn.functional.silu(x1) * x2)
     return linear(blk.mlp.fc2, gelu(linear(blk.mlp.fc1, x)))
 
 

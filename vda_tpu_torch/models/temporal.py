@@ -1,12 +1,21 @@
 """Temporal motion module, PyTorch.
 
-Counterpart of ``vda_tpu/models/temporal.py`` (APE): GroupNorm(32, eps
-1e-6) -> proj_in -> one TemporalTransformerBlock per position over time ->
-proj_out -> residual, for offline windows and for the streaming caches (the
+Counterpart of ``vda_tpu/models/temporal.py``: GroupNorm(32, eps 1e-6) ->
+proj_in -> one TemporalTransformerBlock per position over time -> proj_out
+-> residual, for offline windows and for the streaming caches (the
 reference's hidden-state cache, the pre-PE K/V-projection cache, and that
-cache handed to K6).  Module names follow the reference state-dict keys,
-``pos_encoder.pe`` buffers included; the sinusoidal table used is that
-buffer.
+cache handed to K6).  Module names follow the reference state-dict keys.
+
+Positions are encoded by ``cfg.pe``.  "ape" adds the sinusoidal table to
+the attention input; it is the ``pos_encoder.pe`` buffer, registered under
+APE alone, as the reference exports it.  "rope" rotates q and k after
+their projection (reference motion_module/attention.py:403-429): the
+interleaved channel pairs (0, 1), (2, 3), ... of the whole width C, not of
+one head, turn by angle ``pos * 10000^(-2j / C)``, in fp32, the result in
+the input's dtype.  A query and a key take their position in the attended
+sequence: in the caches, the new frames' queries positions ``T_cache..``
+and the context ``0..``, so a cached frame's position moves as the context
+slides.  The caches hold unrotated rows.
 
 Dispatch follows the JAX gates exactly: offline (``need_caches=False``), a
 block whose width K3 takes runs whole in K3 (``fused_block_supported``),
@@ -17,14 +26,17 @@ streaming first step included; the kv cache goes through K6 when the stream
 asks for it (``stream_kernel.use_kernel``).  ``kernels=False`` turns all
 four off; the LayerNorms take K2 by ``ln_kernel`` (default: ``kernels``),
 so JAX's training set (``attn_impl="xla"``) is ``kernels=False,
-ln_kernel=True``.  RoPE is not ported yet.
+ln_kernel=True``.  The JAX gates keep K3, K4 and K6 to APE, so under RoPE
+K5 takes every attention over whole sequences and the kv cache runs plain.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -55,6 +67,35 @@ def sinusoidal_pe(max_len: int, d_model: int) -> torch.Tensor:
     return pe
 
 
+@functools.lru_cache(maxsize=None)
+def rope_tables(dim: int, end: int, device) -> tuple:
+    """The rotation's (end, dim / 2) cos and sin tables, computed in float64
+    (reference precompute_freqs_cis, attention.py:403-408), as fp32 tensors
+    on ``device``, made once a key (a steady streaming step copies nothing
+    to the device); callers do not modify them."""
+    freqs = 1.0 / (10000.0 ** (np.arange(0, dim, 2)[: dim // 2] / dim))
+    f = np.outer(np.arange(end, dtype=np.float64), freqs)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in (np.cos(f), np.sin(f)))
+
+
+def apply_rope(x, cos, sin):
+    """Rotate the channel pairs (x[..., 0::2], x[..., 1::2]) of x by the
+    tables (broadcast against x[..., 0::2]), in fp32; the result in x's
+    dtype (reference apply_rotary_emb, attention.py:419-429)."""
+    x32 = x.float()
+    xr, xi = x32[..., 0::2], x32[..., 1::2]
+    out = torch.stack([xr * cos - xi * sin, xr * sin + xi * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _rope_at(x, start: int):
+    """``apply_rope`` of (BD, T, C) x at positions start .. start + T - 1."""
+    t, c = x.shape[1], x.shape[2]
+    cos, sin = rope_tables(c, start + t, x.device)
+    return apply_rope(x, cos[start:], sin[start:])
+
+
 class PositionalEncoding(nn.Module):
     def __init__(self, c, max_len, device=None):
         super().__init__()
@@ -68,7 +109,9 @@ class TemporalAttention(nn.Module):
         self.to_k = Linear(c, c, bias=False, device=device)
         self.to_v = Linear(c, c, bias=False, device=device)
         self.to_out = nn.ModuleList([Linear(c, c, device=device)])
-        self.pos_encoder = PositionalEncoding(c, cfg.num_frames, device=device)
+        if cfg.pe == "ape":
+            self.pos_encoder = PositionalEncoding(c, cfg.num_frames,
+                                                  device=device)
 
 
 class GEGLU(nn.Module):
@@ -106,11 +149,14 @@ class TemporalTransformer3DModel(nn.Module):
         self.proj_out = Linear(c, c, device=device)
 
 
+PES = ("ape", "rope")
+
+
 class TemporalModule(nn.Module):
     def __init__(self, c, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.pe != "ape":
-            raise NotImplementedError("only the APE motion module is ported")
+        if cfg.pe not in PES:
+            raise ValueError(f"pe must be one of {PES}, got {cfg.pe!r}")
         self.temporal_transformer = TemporalTransformer3DModel(c, cfg,
                                                                device=device)
 
@@ -156,15 +202,25 @@ def _temporal_attention(attn: TemporalAttention, h, cfg: ModelConfig, cache,
         d_in = cache.shape[1]
         h = torch.cat([cache.to(h.dtype), h], dim=1)
     bd, t_full, c = h.shape
-    h = h + _pe(attn, t_full, h.dtype)
+    rope = cfg.pe == "rope"
+    if not rope:
+        h = h + _pe(attn, t_full, h.dtype)
     if d_in == 0:
         # one fused (C, 3C) product; q, k, v are column slices of it
         qkv = torch.matmul(h, tk._wqkv(attn, h.dtype).t())
+        if rope:  # q and k rotated at the same positions, as one (2, C)
+            cos, sin = rope_tables(c, t_full, h.device)
+            qk = apply_rope(qkv[..., :2 * c].unflatten(-1, (2, c)),
+                            cos[:, None], sin[:, None])
+            # v copied beside them: K5 reads q, k, v with one row stride
+            qkv = torch.cat([qk.flatten(-2), qkv[..., 2 * c:]], dim=-1)
         q, k, v = qkv.split(c, dim=-1)
     else:
         q = linear(attn.to_q, h[:, d_in:])
         k = linear(attn.to_k, h)
         v = linear(attn.to_v, h)
+        if rope:
+            q, k = _rope_at(q, d_in), _rope_at(k, 0)
     o = _attend(q, k, v, cfg.num_attention_heads, kernels)
     out = linear(attn.to_out[0], o)
     if want_kv:
@@ -178,7 +234,8 @@ def _temporal_attention_kv(attn: TemporalAttention, h, cfg: ModelConfig,
     """The "kv" cache: pre-PE K/V projections of the context.  to_k and to_v
     have no bias, so to_k(h_i + pe_i) == to_k(h_i) + to_k(pe_i): the cache
     holds to_k(h_i) and a (T, C) product adds the projected encoding (JAX
-    ``_temporal_attention_kv``)."""
+    ``_temporal_attention_kv``).  Under RoPE the rotation follows the
+    projection, so the split is exact: q and the assembled k are rotated."""
     kc, vc = cache
     bd, t_new, c = h.shape
     d_in = kc.shape[1]
@@ -187,10 +244,14 @@ def _temporal_attention_kv(attn: TemporalAttention, h, cfg: ModelConfig,
     v_new = linear(attn.to_v, h)
     k = torch.cat([kc.to(h.dtype), k_new], dim=1)
     v = torch.cat([vc.to(h.dtype), v_new], dim=1)
-    pe = _pe(attn, t_full, h.dtype)
-    q = linear(attn.to_q, h + pe[None, d_in:t_full])
-    k = k + linear(attn.to_k, pe)[None]
-    v = v + linear(attn.to_v, pe)[None]
+    if cfg.pe == "ape":
+        pe = _pe(attn, t_full, h.dtype)
+        q = linear(attn.to_q, h + pe[None, d_in:t_full])
+        k = k + linear(attn.to_k, pe)[None]
+        v = v + linear(attn.to_v, pe)[None]
+    else:  # the whole context rotated at its positions in it, each step
+        q = _rope_at(linear(attn.to_q, h), d_in)
+        k = _rope_at(k, 0)
     heads = cfg.num_attention_heads
     dh = c // heads
     o = attention_plain(q.reshape(bd, t_new, heads, dh),
@@ -210,7 +271,7 @@ def _temporal_attention_kv_ctx(attn: TemporalAttention, h, cfg: ModelConfig,
     kc, vc = cache[0], cache[1]
     bd, t_new, c = h.shape
     heads = cfg.num_attention_heads
-    if not (kernels and sk.use_kernel(t_new, c, heads)):
+    if not (kernels and sk.use_kernel(t_new, c, heads, cfg.pe)):
         return _temporal_attention_kv(attn, h, cfg, (kc, vc))
     t_ctx = kc.shape[1]
     t_full = t_ctx + 1

@@ -52,14 +52,17 @@ launches = 0  # kernel launches made by ``stream_kv_attention``
 launches_by_loop = {"sm90": 0, "sm80": 0}  # the same launches by loop
 
 
-def use_kernel(t_new: int, c: int, heads: int) -> bool:
+def use_kernel(t_new: int, c: int, heads: int, pe: str) -> bool:
     """The model's dispatch: the JAX gate (``vda_tpu/models/temporal.py``
-    ``_temporal_attention_kv_ctx``, less its TPU row-padding term): one new
-    frame, heads that tile a 512-wide column group, head width a multiple
-    of 8.  The kernel takes every such shape at the 31-row context."""
+    ``_temporal_attention_kv_ctx``, less its TPU row-padding term): the
+    additive encoding (``pe`` "ape": the kernel adds it; RoPE's rotation
+    it does not do), one new frame, heads that tile a 512-wide column
+    group, head width a multiple of 8.  The kernel takes every such shape
+    at the 31-row context."""
     dh = c // heads
     gw = min(c, 512)
-    return t_new == 1 and c % gw == 0 and gw % dh == 0 and dh % 8 == 0
+    return (pe == "ape" and t_new == 1 and c % gw == 0 and gw % dh == 0
+            and dh % 8 == 0)
 
 
 @functools.lru_cache(maxsize=None)

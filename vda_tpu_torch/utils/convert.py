@@ -12,12 +12,13 @@ fp32.
 
 ``load_state_dict_numpy`` takes the flat reference-format numpy dict that
 ``vda_tpu.utils.convert.export_state_dict`` emits (reference key names and
-torch layouts, ``pos_encoder.pe`` buffers included) and loads it strictly:
-every key must be used and every parameter given.
+torch layouts, ``pos_encoder.pe`` buffers included under APE; vitg's
+SwiGLU as ``mlp.w12`` / ``mlp.w3``) and loads it strictly: every key must
+be used and every parameter given.
 
 ``init_random`` fills a model from a ``torch.Generator`` with the JAX init's
 distributions (``vda_tpu/models``): truncated-normal encoder projections,
-fan-in uniform convs and linears, unit LayerNorms and LayerScale, and the
+fan-in uniform convs and linears (the MLP's or SwiGLU's among them), unit LayerNorms and LayerScale, and the
 final conv's bias made positive so random depth is not all-zero after the
 ReLU.  Unlike the JAX init, ``proj_out`` of every motion module gets
 non-zero weights: zero-initialised, each motion module would be the identity
