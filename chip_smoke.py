@@ -14,7 +14,10 @@ with every launch counter set to 0 just before it and read just after:
   * ``weights``: vitl through ``load_model_params(random_init=True)``
     (the smoke run's seeded weights, cast to bf16 once by JAX's rule)
     against the same weights uncast: a window and the first 4 stream steps
-    bit-identical, then each model's parameter casts, kernels and host ms
+    bit-identical; the cast model written as the JAX package's ``.npz``
+    params (``save_params_npz``) and loaded back by
+    ``load_model_params(checkpoint="x.npz")``, every tensor and the window
+    bit-identical; then each model's parameter casts, kernels and host ms
     of a steady stream step and its window's peak memory; the window,
     stream and fused paths below run the cast model;
   * ``main_path``: offline windowed ``infer_video_depth`` on a vitl model
@@ -22,9 +25,21 @@ with every launch counter set to 0 just before it and read just after:
     windows), then one window's forward against the all-plain path;
   * ``stream``: vitl ``StreamingDepth.submit`` over 48 frames of 518x518
     (past eviction onset at step 11 and ring-row reuse at step 45), without
-    and with ``ctx_kernel``, launch counts asserted step by step, the two
-    flavours held to each other and the first frames to an all-plain
-    stream;
+    and with ``ctx_kernel`` (which reads its cache in place from step 42),
+    launch counts asserted step by step, the two held to each other and
+    the first frames to an all-plain stream;
+  * ``stream_direct``: vitl ``StreamingDepth`` over 72 steps of 518x518
+    (the 54 frames, then their first 18 again), three streams stepped in
+    turns: the default kv stream, ``ctx_kernel`` (K6 over the 31 gathered
+    rows, then from step 42 over the 45-row cache buffers in place with 31
+    rows valid) and the same ``ctx_kernel`` stream with its in-place read
+    switched off (K6 over the gathered rows at every step): launches and
+    K6's rows asserted step by step, the in-place read bit-identical to
+    the gathering stream before step 42 and within 2e-2 of it after (the
+    largest gap printed over all steps and over the in-place steps alone),
+    ``order`` equal; the cache bytes, three steps of each under
+    torch.profiler, and an in-place ``submit_group`` of 4 against 4
+    submits (the cache bit for bit);
   * ``vits_window``: one 1x32x518x518 vits forward against the all-plain
     path;
   * ``vitg_window``: one 1x32x518x518 forward of a seeded vitg
@@ -70,7 +85,9 @@ with every launch counter set to 0 just before it and read just after:
     streaming CLI on 12 frames at ``--lookahead`` 1 (depths and cache
     bit-identical to a ``submit`` loop) and 4 (``submit_group``: the cache
     bit-identical, depths within 1e-2), then 4 ``submit`` calls against one
-    group of 4 in turns, ms a frame; ``benchmark_infer`` on one 8-frame
+    group of 4 in turns, ms a frame, and on 48 frames with
+    ``VDA_STREAM_DIRECT=1`` (depths and cache bit-identical to the
+    ``ctx_kernel`` stream the knob builds); ``benchmark_infer`` on one 8-frame
     480x640 scene (fp32, bit-identical to the direct call); the train CLI
     (2 synthetic steps at 266, ``--export-pth`` reloaded by
     ``load_model_params`` bit for bit); the engine's degradation ladder at
@@ -94,8 +111,9 @@ with every launch counter set to 0 just before it and read just after:
   * ``host_sync``: a steady ``StreamingDepth.submit`` with the device held
     by ``torch.cuda._sleep`` (~50 ms, or three times an idle submit's host
     time if longer) returns in less host time than the sleep (vits; vitl's
-    numbers printed beside), and a steady vitl submit
-    and a vitl window ``forward`` make no synchronising call under
+    numbers printed beside), and a steady vitl submit, a vitl window
+    ``forward`` and a steady vitl ``ctx_kernel`` submit that reads its
+    cache in place make no synchronising call under
     ``torch.cuda.set_sync_debug_mode("error")``.
 
 K1 and K9 (bf16, head width 64) run the Hopper loop
@@ -130,9 +148,12 @@ K6 in bf16 runs the Hopper loop of csrc/stream_kv_sm90.cuh: its lines, at
 the four stream shapes (mm0-mm3), carry the old kernel's time on the same
 values (``old_ms``, the largest |new - old| beside it) and the split path
 of library calls (``split_ms``); the fp32 case stays on the old kernel;
-every K6 launch of phases ``kernels``, ``stream`` and ``probes`` is
-asserted on the loop it should run (``stream_kernel.launches_by_loop``),
-and the loop repeats bit for bit.  K10 runs csrc/resize_sm90.cuh: its
+every K6 launch of phases ``kernels``, ``stream``, ``stream_direct``
+and ``probes`` is asserted on the loop it should run
+(``stream_kernel.launches_by_loop``), and the loop repeats bit for bit;
+K6 is also checked at the whole 45-row buffers with the 31 scattered rows
+of the first in-place step valid, as the stream reads them.
+K10 runs csrc/resize_sm90.cuh: its
 lines carry the old kernel's time (``old_ms``), bit-exact with the twin
 and with itself over 30 repeats.
 K5 in bf16 runs the Hopper code of csrc/tiny_seq_sm90.cuh (T >= 2: TMA
@@ -174,6 +195,8 @@ lines are the kernels line, the card's nvidia-smi name and power limit, and
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import gc
 import json
 import os
@@ -218,6 +241,17 @@ PER_VITG_WINDOW = {**ZERO, "K1": 40, "K2": 90, "K3": 2, "K5": 4}
 # 8 attention sub-blocks of a window and K2 the 3 norms of every module
 PER_ROPE_WINDOW = {**ZERO, "K1": 24, "K2": 64, "K5": 8}
 WINDOW_BATCH = 2  # windows a forward of phase window_batch
+# phase stream_direct: 72 steps (the 54 frames, then their first 18
+# again), past the first step whose 31 context entries sit in 31 distinct
+# rows (42), from which the ctx_kernel stream reads its cache in place
+N_DIRECT_STEPS = 72
+DIRECT_FROM = 42
+# positions x width summed over vitl's four motion modules at 518x518
+# (37^2, 19^2, 37^2 and 74^2 positions at 1024, 1024, 256 and 256): a
+# cache row of the 16 bf16 buffers (k and v of two attention sub-blocks a
+# module) is 8 bytes x this, 28,190,720
+STREAM_POS_WIDTH = (37 * 37 * 1024 + 19 * 19 * 1024 + 37 * 37 * 256
+                    + 74 * 74 * 256)
 N_FUSED_STREAM = 8
 KERNELS = {  # name -> (route, source in the repo, the TPU kernel it replaces)
     "K1": ("cuda", "vda_tpu_torch/csrc/attention_qkv.cu",
@@ -282,6 +316,7 @@ N_TRAIN_STEPS = 6
 TRAIN_CLIP = (1, 8, SIZE)  # B, T, side: scripts/train_throughput.py's shape
 N_APPS = 40  # the offline CLI's and the engine's video: two windows
 N_APP_STREAM = 12  # a first frame, two groups of 4 and 3 frames left over
+N_APP_DIRECT = 48  # the streaming CLI with VDA_STREAM_DIRECT=1: 6 in place
 APP_SCENE = (8, 480, 640)  # benchmark_infer's scene: ScanNet's frame size
 APP_TRAIN_SIZE = 266  # the train CLI's default --size
 # the host libraries of the entry points' decode, encode and demo
@@ -299,6 +334,43 @@ PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
+
+
+def cache_bytes_want(rows: int) -> int:
+    """Bytes of a vitl 518x518 bf16 kv cache of ``rows`` rows a buffer."""
+    return 8 * rows * STREAM_POS_WIDTH
+
+
+def direct_rows() -> list:
+    """The buffer rows of the 31 context entries of the first direct step
+    (DIRECT_FROM), by the stream's own bookkeeping."""
+    from vda_tpu_torch.infer import streaming
+
+    order = [0] * streaming.INFER_LEN
+    streaming._evict(0, order)
+    for step in range(1, DIRECT_FROM + 1):
+        ctx, _ = streaming._advance_bookkeeping(step, order)
+    rows = [streaming._row(i) for i in ctx]
+    if len(set(rows)) != len(rows):
+        raise AssertionError(f"step {DIRECT_FROM}: context rows {rows} "
+                             "not distinct")
+    return rows
+
+
+@contextlib.contextmanager
+def knob_scope(env: dict):
+    """Sets the knobs ``env`` for the block and restores the environment
+    after it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def smi() -> str:
@@ -475,6 +547,7 @@ def phase_kernels(model):
     error."""
     import torch.nn.functional as F
 
+    from vda_tpu_torch.infer.streaming import _BUF_ROWS
     from vda_tpu_torch.ops import attention_kernel as k1
     from vda_tpu_torch.ops import attn_proj_kernel as k7
     from vda_tpu_torch.ops import norm_kernel as k2
@@ -704,14 +777,17 @@ def phase_kernels(model):
     # fp32 case, with rows that are not valid, on the old kernel
     from vda_tpu_torch.probes import bench_stream_sm90 as bs
 
-    def k6_case(bhw, rows, c, dtype, n_valid, heads=8):
+    def k6_case(bhw, rows, c, dtype, n_valid, heads=8, valid_rows=None):
         def mk(*shape):
             return torch.randn(*shape, device="cuda", generator=g).to(dtype)
         q, kn, vn = mk(bhw, c), mk(bhw, c), mk(bhw, c)
         kb, vb, pk, pv = mk(bhw, rows, c), mk(bhw, rows, c), mk(rows, c), \
             mk(rows, c)
         valid = torch.zeros(rows, dtype=torch.bool, device="cuda")
-        valid[:n_valid] = True
+        if valid_rows is None:
+            valid[:n_valid] = True
+        else:
+            valid[valid_rows] = True
         zero = torch.zeros(rows, c, device="cuda")
         scale = (c // heads) ** -0.5
         loop = "sm90" if dtype == bf else "sm80"
@@ -720,9 +796,12 @@ def phase_kernels(model):
                                  f"the {loop} loop")
         ins = dict(q=q, kn=kn, vn=vn, kb=kb, vb=vb, pk=pk, pv=pv,
                    valid=valid.to(torch.uint8), scale=scale)
+        # the split path of library calls computes the function only where
+        # every row takes part
         timed = {} if dtype != bf else dict(
             old=lambda: bs.variant("sm80", ins),
-            split=lambda: bs.split_path(ins))
+            **({} if valid_rows is not None else
+               dict(split=lambda: bs.split_path(ins))))
 
         def twin(fp32):
             if fp32:  # the encodings added in the working dtype
@@ -754,6 +833,13 @@ def phase_kernels(model):
 
     for shape in bs.SHAPES.values():
         k6_case(*shape, bf, n_valid=31)
+    # the in-place read's shapes: the whole 45-row buffers, the 31 context
+    # rows of its first step (42) valid, scattered as that step's rows are;
+    # fp32 on the old kernel
+    for bhw, _, c in bs.SHAPES.values():
+        k6_case(bhw, _BUF_ROWS, c, bf, n_valid=31, valid_rows=direct_rows())
+    k6_case(37, _BUF_ROWS, 256, torch.float32, n_valid=31,
+            valid_rows=direct_rows())
     k6_case(37, 31, 256, torch.float32, n_valid=19)
 
     # K7: vitl's fused attention half, qkv (32, 1370, 3072), W (1024, 1024),
@@ -1147,6 +1233,49 @@ def copies_bytes(model) -> int:
                    for m in model.modules() if m in temporal_kernel._wqkv_cache)
 
 
+def npz_round_trip(cast, x, window) -> dict:
+    """The cast vitl through the JAX package's ``.npz`` params
+    (``save_params_npz``) and back (``load_model_params(checkpoint=
+    "x.npz")``, cast once): every tensor and the window ``x``'s depths
+    (``window``) bit-identical.  Returns the file's bytes and the ms of the
+    write and the load."""
+    import tempfile
+
+    import vda_tpu_torch as vt
+    from vda_tpu_torch.utils.convert import save_params_npz
+
+    work = tempfile.mkdtemp(prefix="vda_npz_")
+    try:
+        path = os.path.join(work, "vitl.npz")
+        t0 = time.perf_counter()
+        save_params_npz(path, cast)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        with np.load(path) as data:
+            bf16_leaves = sum(data[n].dtype == np.dtype("V2")
+                              for n in data.files)
+            leaves = len(data.files)
+        t0 = time.perf_counter()
+        _, back = vt.load_model_params("vitl", checkpoint=path)
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        back.requires_grad_(False)
+        sa, sb = cast.state_dict(), back.state_dict()
+        same = sa.keys() == sb.keys() and all(
+            sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k])
+            for k in sa)
+        out = dict(file_bytes=os.path.getsize(path), leaves=leaves,
+                   bf16_leaves=bf16_leaves, save_ms=save_ms, load_ms=load_ms,
+                   state_bit_identical=same,
+                   window_bit_identical=bool(torch.equal(
+                       vt.forward(back, x), window)))
+    finally:
+        shutil.rmtree(work)
+    if not (out["state_bit_identical"] and out["window_bit_identical"]
+            and 0 < bf16_leaves < leaves):
+        raise AssertionError(f"the cast vitl through .npz: {out}")
+    return out
+
+
 def phase_weights(model):
     """The inference weights' path: vitl through ``load_model_params(
     random_init=True)`` (``init_random`` from a generator seeded 0, as
@@ -1197,6 +1326,7 @@ def phase_weights(model):
     if not torch.equal(outs["uncast"], outs["cast"]):
         raise AssertionError("the cast model's window differs from the "
                              "uncast model's")
+    npz = npz_round_trip(cast, x, outs["cast"])
     streams = {name: vt.StreamingDepth(m) for name, m in models.items()}
     for i, f in enumerate(frames[:4]):
         d = {name: st.submit(f) for name, st in streams.items()}
@@ -1232,7 +1362,7 @@ def phase_weights(model):
             step_ms=float(np.median(step[name])),
             step_host_ms_all=host[name])
     emit(phase="weights", window_bit_identical=True,
-         stream_steps_bit_identical=4, **res)
+         stream_steps_bit_identical=4, npz=npz, **res)
     if res["cast"]["step_param_casts"] or not res["uncast"][
             "step_param_casts"]:
         raise AssertionError(f"parameter casts of a steady step: cast "
@@ -1354,10 +1484,7 @@ def phase_stream(model, frames):
         if streams["kv"].order != streams["ctx"].order:
             raise AssertionError(f"step {i}: cache order differs")
     peak = torch.cuda.max_memory_allocated()
-    # two attention sub-blocks x (k, v) x 45 rows x the four modules'
-    # positions and widths at 518x518 (37^2, 19^2, 37^2 and 74^2) x 2 bytes
-    want_cache = 4 * _BUF_ROWS * 2 * (37 * 37 * 1024 + 19 * 19 * 1024
-                                      + 37 * 37 * 256 + 74 * 74 * 256)
+    want_cache = cache_bytes_want(_BUF_ROWS)
     cache = streams["kv"].cache_bytes()
     if cache != want_cache or streams["ctx"].cache_bytes() != want_cache:
         raise AssertionError(f"cache bytes {cache} != {want_cache}")
@@ -1380,6 +1507,171 @@ def phase_stream(model, frames):
          step_ms=step_ms, max_memory_allocated=peak,
          cache_bytes_per_stream=cache, max_rel_ctx_vs_kv=worst,
          vs_plain=vs_plain, launches=total)
+    return total
+
+
+def fork(stream):
+    """A second stream in ``stream``'s state: the same model, bookkeeping
+    and options, its own copy of the cache buffers."""
+    twin = copy.copy(stream)
+    twin.buffers = [b.clone() for b in stream.buffers]
+    twin.order = list(stream.order)
+    return twin
+
+
+def phase_stream_direct(model, frames):
+    """vitl causal streaming, bf16, N_DIRECT_STEPS steps of 518x518 (the 54
+    frames, then their first 18 again), three streams stepped in turns:
+    the default kv stream, ``ctx_kernel`` (K6 over the 31 gathered rows up
+    to step 41, over the 45-row buffers in place from DIRECT_FROM) and,
+    for comparison, the same ``ctx_kernel`` stream with its in-place read
+    switched off (``gather``: K6 over the gathered rows at every step, the
+    path the in-place read replaces).  At every step: the launches (K1 24,
+    K2 64, K5 8 on step 0; K6 8 on each ``ctx`` and ``gather`` step after
+    the first, on the Hopper loop: at 45 rows with 31 valid for ``ctx``
+    from DIRECT_FROM, else at 31 rows), ``ctx`` bit-identical to
+    ``gather`` before DIRECT_FROM and within 2e-2 of it from then on, both
+    within 2e-2 of kv, ``order`` equal.  The largest gaps are kept over all
+    steps and over the in-place steps alone.  Then the cache bytes, three
+    more steps of each stream under torch.profiler (device busy ms, kernel
+    ms by kind), and a ``ctx_kernel`` ``submit_group`` of 4 (one in-place
+    group) against 4 submits on a fork of the stream (the cache bit for
+    bit, the depths within 1e-2).  Returns the launches of the stepped
+    run."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.infer.streaming import _BUF_ROWS
+    from vda_tpu_torch.ops import stream_kernel
+    from vda_tpu_torch.utils.profiling import device_profile
+
+    frames = np.concatenate([frames, frames[:N_DIRECT_STEPS - len(frames)]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    streams = {"kv": vt.StreamingDepth(model),
+               "ctx": vt.StreamingDepth(model, ctx_kernel=True),
+               "gather": vt.StreamingDepth(model, ctx_kernel=True)}
+    if not streams["ctx"]._direct:
+        raise AssertionError("the vitl ctx_kernel stream does not read its "
+                             "cache in place")
+    streams["gather"]._direct = False
+    # K6's launches, their rows and valid flags, seen through its wrapper
+    k6_calls = []
+    wrapper = stream_kernel.stream_kv_attention
+
+    def recording(q, k_new, v_new, k_buf, v_buf, pe_k, pe_v, valid, heads,
+                  scale):
+        k6_calls.append((k_buf.shape[1], valid))
+        return wrapper(q, k_new, v_new, k_buf, v_buf, pe_k, pe_v, valid,
+                       heads, scale)
+
+    total = dict(ZERO)
+    step_ms = {name: [] for name in streams}
+    worst = {"ctx_vs_gather": 0.0, "ctx_vs_kv": 0.0, "gather_vs_kv": 0.0}
+    worst_direct = dict(worst)  # over the in-place steps alone
+    stream_kernel.stream_kv_attention = recording
+    try:
+        for i, f in enumerate(frames):
+            depth = {}
+            for name, stream in streams.items():
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                k6_calls.clear()
+                t0 = time.perf_counter()
+                depth[name] = stream.submit(f)
+                torch.cuda.synchronize()
+                step_ms[name].append(1e3 * (time.perf_counter() - t0))
+                counts = ops.launch_counts()
+                k6 = 8 if i and name != "kv" else 0
+                want = {**PER_STEP, "K5": 8 if i == 0 else 0, "K6": k6}
+                k6_loops = dict(stream_kernel.launches_by_loop)
+                rows = sorted({r for r, _ in k6_calls})
+                n_valid = sorted({int(v.sum()) for _, v in k6_calls})
+                in_place = name == "ctx" and i >= DIRECT_FROM
+                want_rows = ([_BUF_ROWS if in_place else 31] if k6 else [])
+                if counts != want or not by_loop_ok(counts) or \
+                        k6_loops != {"sm90": k6, "sm80": 0} or \
+                        not k5_k8_by_loop_ok(counts) or \
+                        rows != want_rows or n_valid != ([31] if k6 else []):
+                    raise AssertionError(
+                        f"stream {name} step {i}: launches {counts} != "
+                        f"{want}, K6 by loop {k6_loops}, K6 rows {rows} "
+                        f"(want {want_rows}) with {n_valid} valid, or a K1 "
+                        "or K5 launch off the Hopper code")
+                total = {k: total[k] + counts[k] for k in total}
+                d = depth[name]
+                if d.shape != (SIZE, SIZE) or not torch.isfinite(d).all():
+                    raise AssertionError(f"stream {name} step {i}: depth "
+                                         f"{tuple(d.shape)} not finite")
+            if i < DIRECT_FROM and not torch.equal(depth["ctx"],
+                                                   depth["gather"]):
+                raise AssertionError(f"step {i}: ctx_kernel before its "
+                                     "first in-place step differs from the "
+                                     "gathering stream")
+            for key in worst:
+                a, b = key.split("_vs_")
+                r = rel(depth[b], depth[a])[1]
+                worst[key] = max(worst[key], r)
+                if i >= DIRECT_FROM:
+                    worst_direct[key] = max(worst_direct[key], r)
+                if not r < 2e-2:
+                    raise AssertionError(f"step {i}: {a} vs {b} max_rel {r}")
+            orders = {tuple(st.order) for st in streams.values()}
+            if len(orders) != 1:
+                raise AssertionError(f"step {i}: cache order differs "
+                                     "between the streams")
+    finally:
+        stream_kernel.stream_kv_attention = wrapper
+    peak = torch.cuda.max_memory_allocated()
+    cache = {name: st.cache_bytes() for name, st in streams.items()}
+    want_cache = cache_bytes_want(_BUF_ROWS)
+    if set(cache.values()) != {want_cache} or want_cache != 1_268_582_400:
+        raise AssertionError(f"cache bytes {cache} != {want_cache}")
+    # three more steps of each stream under torch.profiler
+    profiled = {}
+    for name, stream in streams.items():
+        runs = [device_profile(lambda: stream.submit(f))
+                for f in frames[18:21]]
+        by_kind = [r["kernel_ms_by_kind"] for r in runs]
+        kinds_seen = sorted({k for kinds in by_kind for k in kinds})
+        profiled[name] = dict(
+            kernel_ms_by_kind_median={
+                k: float(np.median([kinds.get(k, 0.0) for kinds in by_kind]))
+                for k in kinds_seen},
+            device_busy_ms=[r["device_busy_ms"] for r in runs],
+            device_busy_median_ms=float(np.median(
+                [r["device_busy_ms"] for r in runs])),
+            wall_ms=[r["wall_ms"] for r in runs],
+            idle_share=[r["idle_share"] for r in runs],
+            kernels=[sum(r["launches_by_kind"].values()) for r in runs],
+            top_kernels_ms=runs[-1]["top_kernels_ms"])
+    # an in-place group of 4 against 4 submits, from one state
+    seq = streams["ctx"]
+    grp = fork(seq)
+    batch = frames[21:25]
+    ref = [seq.submit(f) for f in batch]
+    ops.reset_launch_counts()
+    got = grp.submit_group(batch)
+    torch.cuda.synchronize()
+    group_counts = ops.launch_counts()
+    group_rel = max(rel(r, g)[1] for r, g in zip(ref, got))
+    group = dict(frames=len(batch), launches=group_counts,
+                 cache_identical=same_cache(seq, grp), max_rel=group_rel)
+    want_group = {**ZERO, "K1": 24, "K2": ENC_K2 + MM_K2 * len(batch),
+                  "K6": 8 * len(batch)}
+    if not group["cache_identical"] or not group_rel < 1e-2 or \
+            group_counts != want_group:
+        raise AssertionError(f"ctx_kernel submit_group of 4 against 4 "
+                             f"submits: {group}, want launches {want_group}")
+    steady = {name: float(np.median(ms[DIRECT_FROM:]))
+              for name, ms in step_ms.items()}
+    emit(phase="stream_direct", nvidia_smi=smi(), frames=len(frames),
+         first_step_ms={name: ms[0] for name, ms in step_ms.items()},
+         steady_ms_per_frame=steady,
+         steady_steps=f"{DIRECT_FROM}-{len(frames) - 1} (median)",
+         step_ms=step_ms, max_memory_allocated=peak, cache_bytes=cache,
+         max_rel_all_steps=worst,
+         max_rel_in_place_steps=worst_direct,
+         profiled_steps=profiled, group=group, launches=total)
     return total
 
 
@@ -2129,13 +2421,15 @@ def phase_apps():
         loaded.append(model)
         return cfg, model
 
-    class Recording(run_streaming.StreamingDepth):
-        def __init__(self, *args, **kw):
-            super().__init__(*args, **kw)
-            streams.append(self)
+    def recording(*args, _build=run_streaming.StreamingDepth, **kw):
+        """The CLI's stream, flavour by its knobs as the CLI builds it;
+        kept."""
+        stream = _build(*args, **kw)
+        streams.append(stream)
+        return stream
 
     replace(run, "load_model", keep)
-    replace(run_streaming, "StreamingDepth", Recording)
+    replace(run_streaming, "StreamingDepth", recording)
 
     def call(fn, argv):
         """(fn's result, wall s, launches, whether every K1, K3, K4 and K5
@@ -2263,6 +2557,41 @@ def phase_apps():
             fails.append("submit_group's cache left the submits' after "
                          "the timed rounds")
         del runs, direct, grouped, ref
+
+        # the streaming CLI with VDA_STREAM_DIRECT=1 on a clip of
+        # N_APP_DIRECT frames (the N_APPS frames, then their first ones
+        # again: in place from step 42), against the ctx_kernel stream the
+        # knob should build on the model it loaded
+        video_d = os.path.join(work, "clip_direct.mp4")
+        out = cv2.VideoWriter(video_d, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                              (size, size))
+        for f in np.concatenate([frames, frames])[:N_APP_DIRECT]:
+            out.write(f[:, :, ::-1].copy())
+        out.release()
+        seen_d, _ = io.read_video_frames(video_d)
+        with knob_scope({"VDA_STREAM_DIRECT": "1"}):
+            got, wall, counts, hopper = call(run_streaming.main, [
+                "--input_video", video_d, "--output_dir",
+                os.path.join(work, "stream_direct"), "--input_size",
+                str(size)] + common)
+        cli_stream, model = streams.pop(), loaded.pop()
+        direct = vt.StreamingDepth(model, input_size=size, ctx_kernel=True)
+        ref = [direct.submit(f).cpu().numpy() for f in seen_d]
+        want = {**stream_launches(N_APP_DIRECT, 1),
+                "K6": 8 * (N_APP_DIRECT - 1)}
+        stream["direct_knob"] = dict(
+            frames=N_APP_DIRECT, wall_s=wall, launches=counts,
+            ctx_kernel=cli_stream.ctx_kernel, in_place=cli_stream._direct,
+            bit_identical=bool(np.array_equal(np.stack(got), np.stack(ref))),
+            cache_identical=same_cache(cli_stream, direct))
+        total = {key: total[key] + counts[key] for key in total}
+        if not (stream["direct_knob"]["bit_identical"]
+                and stream["direct_knob"]["cache_identical"]
+                and cli_stream.ctx_kernel and cli_stream._direct
+                and counts == want and hopper):
+            fails.append(f"streaming CLI with VDA_STREAM_DIRECT=1: "
+                         f"{stream['direct_knob']}, want launches {want}")
+        del cli_stream, model, direct, got, ref
 
         preds = os.path.join(work, "preds")
         _, wall, counts, _ = call(benchmark_infer.main, [
@@ -2539,10 +2868,12 @@ def phase_host_sync(model, frames):
     """The host never waits for the device inside a steady ``submit`` or a
     window ``forward``.  (1) With the device held by ``torch.cuda._sleep``
     (~50 ms, longer on a slow host: ``held_submit``), a steady vits
-    ``submit`` returns in less host time than the sleep.  The same is printed for vitl; its step enqueues
-    more kernels than CUDA's launch queue holds (~1000), so there the host
+    ``submit`` returns in less host time than the sleep.  The same is
+    printed for vitl; its step enqueues more kernels than CUDA's launch queue holds (~1000), so there the host
     waits for queue room, not for a synchronising call.  (2) A steady vitl
-    ``submit`` and a vitl window ``forward`` run under
+    ``submit``, a vitl window ``forward`` and a steady vitl ``ctx_kernel``
+    ``submit`` that reads the cache in place (past DIRECT_FROM: its
+    position map and valid flags go up every step) run under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
     that makes the host wait for the device."""
     import vda_tpu_torch as vt
@@ -2561,6 +2892,11 @@ def phase_host_sync(model, frames):
     x = preprocess_frames(torch.from_numpy(frames[:32][None]).cuda(),
                           (SIZE, SIZE), dtype=torch.bfloat16)
     vt.forward(model, x)
+    # a ctx_kernel stream past its first in-place step, one steady step
+    # before the check
+    direct = vt.StreamingDepth(model, ctx_kernel=True)
+    for f in frames[:DIRECT_FROM + 2]:
+        direct.submit(f)
     torch.cuda.synchronize()
     checked = []
     torch.cuda.set_sync_debug_mode("error")
@@ -2569,6 +2905,8 @@ def phase_host_sync(model, frames):
         checked.append("vitl steady submit")
         vt.forward(model, x)
         checked.append("vitl window forward")
+        direct.submit(frames[DIRECT_FROM + 2])
+        checked.append("vitl steady in-place ctx_kernel submit")
     finally:
         torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -2608,6 +2946,7 @@ def main() -> int:
     window, frames = phase_main_path(cast)
     phase_cross_check(cast, frames)
     stream = phase_stream(cast, frames[:N_STREAM])
+    direct = phase_stream_direct(cast, frames)
     vits = phase_vits_window(frames)
     vitg = phase_vitg_window(frames)
     rope = phase_rope(frames)
@@ -2622,8 +2961,8 @@ def main() -> int:
     int8 = phase_int8(model)
     probes = phase_probes()
     phase_host_sync(cast, frames)
-    paths = (window, stream, vits, vitg, rope, batched, fused, fused_stream,
-             cross, nested, train, apps, int8, probes)
+    paths = (window, stream, direct, vits, vitg, rope, batched, fused,
+             fused_stream, cross, nested, train, apps, int8, probes)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     idle = [k for k, n in launches.items() if not n]
     if idle:

@@ -111,9 +111,7 @@ def test_run_cli_random_init_metric(test_video, tmp_path):
                                    b"element vertex 6300\n")
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"],
-                                   ["--checkpoint", "params.npz"]],
-                         ids=["tp", "npz"])
+@pytest.mark.parametrize("flags", [["--tp", "2"]], ids=["tp"])
 def test_run_cli_refuses_unported(flags, tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         trun.main(["--input_video", str(tmp_path / "x.mp4"), "--device",

@@ -183,9 +183,8 @@ def test_train_cli_from_pth_with_options(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--tp", "2"], "ROADMAP.md"),
-    (["--checkpoint", "params.npz"], "ROADMAP.md"),
     (["--size", "50"], None),
-], ids=["tp", "npz", "size"])
+], ids=["tp", "size"])
 def test_train_cli_refusals(flags, match):
     with pytest.raises(SystemExit, match=match):
         ttrain.main(BASE + ["--steps", "1"] + flags)

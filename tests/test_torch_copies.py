@@ -180,9 +180,50 @@ def test_probe_stream_literals_equal():
     assert f"scale={tk14.SCALE}))" in src
 
 
+@pytest.mark.parametrize("pe,ffn,tp", [("ape", "mlp", False),
+                                       ("rope", "swiglufused", False),
+                                       ("ape", "mlp", True)],
+                         ids=["ape_mlp", "rope_swiglu", "tp_layout"])
+def test_convert_and_export_state_dict_equal(pe, ffn, tp):
+    """``utils/convert.py``'s ``convert_state_dict`` / ``export_state_dict``
+    give JAX's leaves and state dict, array for array (with the
+    tensor-parallel layout's qkv leaves on export)."""
+    import torch
+
+    import vda_tpu_torch as vt
+    from vda_tpu.parallel.mesh import to_tp_layout
+    from vda_tpu.utils import convert as jconvert
+    from vda_tpu_torch.utils import convert as tconvert
+
+    from tests.torch_port import small_configs
+
+    jcfg, tcfg = small_configs(pe=pe, ffn_layer=ffn)
+    sd = {k: v.numpy() for k, v in vt.init_random(
+        tcfg, torch.Generator().manual_seed(1), device="cpu")
+        .state_dict().items()}
+    got = tconvert.convert_state_dict(sd, tcfg)
+    ref = jconvert.convert_state_dict(sd, jcfg)
+    flat = dict(tconvert._flatten(got))
+    ref_flat = dict(tconvert._flatten(ref))
+    assert flat.keys() == ref_flat.keys()
+    for name, leaf in flat.items():
+        assert leaf.dtype == ref_flat[name].dtype, name
+        np.testing.assert_array_equal(leaf, ref_flat[name])
+    if tp:
+        got, ref = to_tp_layout(got), to_tp_layout(ref)
+        assert got["pretrained"]["blocks"][0]["attn"]["qkv"]["w"].ndim == 3
+    out = tconvert.export_state_dict(got, tcfg)
+    ref_out = jconvert.export_state_dict(ref, jcfg)
+    assert out.keys() == ref_out.keys() == sd.keys()
+    for k, v in out.items():
+        assert v.dtype == ref_out[k].dtype, k
+        np.testing.assert_array_equal(v, ref_out[k])
+
+
 def test_port_imports_no_jax():
     code = ("import sys; import vda_tpu_torch, vda_tpu_torch.ops, "
             "vda_tpu_torch.infer.windowed, vda_tpu_torch.infer.streaming, "
+            "vda_tpu_torch.utils.knobs, "
             "vda_tpu_torch.ops.tiny_seq_kernel, "
             "vda_tpu_torch.ops.stream_kernel, vda_tpu_torch.utils.convert, "
             "vda_tpu_torch.ops.attn_proj_kernel, "

@@ -854,6 +854,68 @@ def test_streaming_cache_kinds_agree(gen):
     assert others[1].cache_bytes() < kv.cache_bytes() // 2 + 4096
 
 
+def test_streaming_direct_read_on_card(gen, monkeypatch):
+    """K6's in-place read of the cache on the card, 50 bf16 frames through
+    a tiny model whose temporal widths K6 takes (4 heads of 8), stepped in
+    turns beside the default kv stream and the same ``ctx_kernel`` stream
+    with its in-place read switched off: K6 8 a step after the first, over
+    the 31 gathered rows up to step 41 (bit-identical to the gathering
+    stream) and over the 45-row buffers from step 42, on the Hopper loop;
+    within 2e-2 of the gathering stream and of kv (the bound of
+    tests/test_streaming_ctx_kernel.py); then a group of 4 that reads in
+    place leaves the cache 4 submits leave.  The small model's C=640
+    modules are not a K6 width, so its in-place read stays off."""
+    from vda_tpu_torch.ops import stream_kernel
+
+    cfg = ModelConfig("tiny", 32, (32, 32, 32, 32), (0, 0, 1, 1),
+                      EncoderConfig(embed_dim=64, depth=2, num_heads=2,
+                                    img_size=56), num_attention_heads=4)
+    model = vt.init_random(cfg, gen, device="cuda").requires_grad_(False)
+    frames = (torch.rand(54, 70, 90, 3, device="cuda", generator=gen)
+              * 255).to(torch.uint8)
+    streams = {"kv": vt.StreamingDepth(model, input_size=56),
+               "ctx": vt.StreamingDepth(model, input_size=56,
+                                        ctx_kernel=True),
+               "gather": vt.StreamingDepth(model, input_size=56,
+                                           ctx_kernel=True)}
+    assert streams["ctx"]._direct
+    streams["gather"]._direct = False
+    rows = []
+    wrapper = stream_kernel.stream_kv_attention
+    monkeypatch.setattr(stream_kernel, "stream_kv_attention",
+                        lambda *a: rows.append(a[3].shape[1]) or wrapper(*a))
+    for i, f in enumerate(frames[:50]):
+        out = {}
+        for name, stream in streams.items():
+            rows.clear()
+            tops.reset_launch_counts()
+            out[name] = stream.submit(f)
+            torch.cuda.synchronize()
+            want = [] if name == "kv" or i == 0 else \
+                [45 if name == "ctx" and i >= 42 else 31] * 8
+            assert rows == want, (name, i)
+            assert stream_kernel.launches_by_loop == {"sm90": len(want),
+                                                      "sm80": 0}
+        if i < 42:
+            assert torch.equal(out["ctx"], out["gather"]), i
+        assert _rel(out["gather"], out["ctx"]) < 2e-2, i
+        assert _rel(out["kv"], out["ctx"]) < 2e-2, i
+        assert len({tuple(s.order) for s in streams.values()}) == 1
+    seq, grp = streams["ctx"], streams["gather"]
+    grp._direct = True
+    grp.buffers = [b.clone() for b in seq.buffers]
+    ref = [seq.submit(f) for f in frames[50:]]
+    rows.clear()
+    got = grp.submit_group(frames[50:])
+    assert rows == [45] * 32
+    assert all(torch.equal(a, b) for a, b in zip(seq.buffers, grp.buffers))
+    assert seq.order == grp.order
+    assert max(_rel(a, b) for a, b in zip(ref, got)) < 1e-2
+    small = vt.StreamingDepth(_small_model(gen), input_size=322,
+                              ctx_kernel=True)
+    assert not small._direct
+
+
 # ---------------------------------------------------------------------------
 # K5 and K8 on their Hopper code
 # ---------------------------------------------------------------------------

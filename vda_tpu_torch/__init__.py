@@ -4,16 +4,19 @@ It runs Video Depth Anything on an NVIDIA Hopper GPU, every configuration
 of ``config.MODEL_CONFIGS`` (vitg's SwiGLU encoder among them) with APE or
 RoPE motion modules (``pe``): offline windowed inference
 (``infer_video_depth``, optionally with ``fuse_proj``, ``resize_kernel``
-and ``window_batch``), causal streaming (``StreamingDepth``), the generic
-attention library (``models/cross_attention.py``), and training on one
-device: ``video_depth_loss`` (``loss/``), ``make_optimizer`` /
+and ``window_batch``), causal streaming (``StreamingDepth``; with
+``ctx_kernel`` K6 reads the cache in place once the warmup is over), the
+JAX package's ``VDA_*`` knobs that pick behaviour (``utils/knobs.py``), the
+generic attention library (``models/cross_attention.py``), and training on
+one device: ``video_depth_loss`` (``loss/``), ``make_optimizer`` /
 ``init_train_state`` / ``make_train_step`` (``parallel/train.py``), the
 ``train`` loop with metrics, prefetch and checkpoint resume
 (``parallel/trainer.py``, ``utils/data.py``, ``utils/checkpoint.py``,
 ``utils/augment.py``), and ``models/dinov2.block_apply_nested`` for
 multi-crop batches; ``load_model_params`` (``utils/loader.py``), the one
-loader of a reference ``.pth`` or a seeded model, with JAX's cast of the
-weights to bf16 once (``cast_params_for_inference``); the kernel-level
+loader of a reference ``.pth``, the JAX package's ``.npz`` params or a
+seeded model, with JAX's cast of the weights to bf16 once
+(``cast_params_for_inference``); the kernel-level
 W8A8 int8 linear (``ops/quant.py``, which the model does not call, as in
 JAX) and the on-card measurement probes (``probes/``).  Plain tensor code is PyTorch; the fourteen TPU
 kernels of the JAX package are hand-written Hopper kernels, each beside a

@@ -7,13 +7,13 @@ Outputs: <name>_src.mp4, <name>_vis.mp4, optional NPZ (``depths`` key),
 optional per-frame EXR Z channel, and metric-mode point clouds (PLY).
 
 Weights: a reference ``.pth`` (default ./checkpoints/{metric_}video_depth_
-anything_{enc}.pth, reference run.py:50-54) through
-``utils/loader.load_model_params``, or ``--random-init`` (seeded weights,
-for pipeline testing).  The model runs on the card unless ``--device cpu``
-asks for the CPU.  ``--window-batch N`` runs N windows as the batch of
-one forward on that device.  ``--tp`` above 1 is multi-GPU work (ROADMAP.md
-Queue 1, item 9) and the JAX package's ``.npz`` params are not read
-(ROADMAP.md Queue 1, item 11): each is refused.
+anything_{enc}.pth, reference run.py:50-54) or the JAX package's ``.npz``
+params (``--checkpoint x.npz``) through ``utils/loader.load_model_params``,
+or ``--random-init`` (seeded weights, for pipeline testing).  The model
+runs on the card unless ``--device cpu`` asks for the CPU.
+``--window-batch N`` runs N windows as the batch of one forward on that
+device.  ``--tp`` above 1 is multi-GPU work (ROADMAP.md Queue 1, item 9)
+and is refused.
 """
 
 import argparse
@@ -50,7 +50,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--focal-length-y", default=470.4, type=float)
     # extensions over the reference CLI
     parser.add_argument("--checkpoint", type=str, default=None,
-                        help="explicit reference .pth checkpoint path")
+                        help="explicit checkpoint path: a reference .pth "
+                             "or the JAX package's .npz params")
     parser.add_argument("--random-init", action="store_true",
                         help="random weights (pipeline testing only)")
     parser.add_argument("--attn-impl", type=str, default="auto",
@@ -72,10 +73,6 @@ def refuse_unported(args) -> None:
     if getattr(args, "tp", 1) > 1:
         raise SystemExit("--tp above 1 is multi-GPU work, not ported "
                          "(ROADMAP.md Queue 1, item 9)")
-    if (args.checkpoint or "").endswith(".npz"):
-        raise SystemExit(f"{args.checkpoint}: the JAX package's .npz params "
-                         "are not ported yet (ROADMAP.md Queue 1, item 11); "
-                         "pass a reference-format .pth")
 
 
 def _ensure_example_video(path: str) -> None:

@@ -6,9 +6,12 @@ run_streaming.py:25-96), with its flags and outputs.
 
 Decodes frames with cv2 (``open_video``), calls ``StreamingDepth`` per frame
 (``--lookahead`` k > 1: ``submit_group`` on k frames at a time), writes the
-depth visualization video and prints the wall time.  Runs on the card
-unless ``--device cpu``; ``--tp`` above 1 is multi-GPU work (ROADMAP.md
-Queue 1, item 9) and is refused.
+depth visualization video and prints the wall time.  Whether the stream
+runs K6 (``VDA_STREAM_CTX_KERNEL`` / ``VDA_STREAM_DIRECT``) and, with
+``--cache-dtype auto``, its cache dtype come from the ``VDA_STREAM_*``
+knobs, as JAX's CLI resolves them (``utils/knobs.py``).
+Runs on the card unless ``--device cpu``; ``--tp`` above 1 is multi-GPU
+work (ROADMAP.md Queue 1, item 9) and is refused.
 """
 
 import argparse
@@ -18,9 +21,6 @@ import time
 import numpy as np
 
 from vda_tpu_torch.infer.streaming import StreamingDepth
-
-# --cache-dtype auto: the port's default, as JAX's _DEFAULT_CACHE_DTYPE
-DEFAULT_CACHE_DTYPE = "bf16"
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -48,9 +48,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "latency)")
     parser.add_argument("--cache-dtype", type=str, default="auto",
                         choices=["auto", "bf16", "int8"],
-                        help="hidden-state cache dtype: bf16 (the default "
-                             "via auto) or int8, which halves the cache and "
-                             "its per-step read")
+                        help="hidden-state cache dtype: bf16 or int8, "
+                             "which halves the cache and its per-step read; "
+                             "auto reads VDA_STREAM_CACHE_DTYPE / "
+                             "VDA_STREAM_KV8 (bf16 when unset)")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree: multi-GPU work, only "
                              "1 is served")
@@ -109,8 +110,7 @@ def main(argv=None):
     cfg, model = run.load_model(args)
     stream = StreamingDepth(model, input_size=args.input_size,
                             fp32=args.fp32, attn_impl=args.attn_impl,
-                            cache_dtype=(DEFAULT_CACHE_DTYPE
-                                         if args.cache_dtype == "auto"
+                            cache_dtype=(None if args.cache_dtype == "auto"
                                          else args.cache_dtype))
     fps, video = open_video(args.input_video, args.target_fps, args.max_res)
 

@@ -10,11 +10,12 @@ or float RAW RGB in [0,1], depth (B,T,H,W), mask), a benchmark-extract
 of ``apps/train.py``'s, held to them by ``tests/test_torch_apps_train.py``.
 ImageNet normalization happens INSIDE the train step: shards must NOT be
 pre-normalized (guarded in npz_data_iter).  The model starts from seeded
-random weights (``init_random``, a ``torch.Generator`` seeded 0) or a
-reference ``.pth``; ``--export-pth`` saves the trained state dict, which
-has the reference's key layout.  Runs on the card unless ``--device cpu``;
-``--tp`` above 1 is multi-GPU work (ROADMAP.md Queue 1, item 9) and the JAX
-package's ``.npz`` params are not ported yet (item 11): both are refused.
+random weights (``init_random``, a ``torch.Generator`` seeded 0), a
+reference ``.pth`` or the JAX package's ``.npz`` params (in fp32, as JAX's
+CLI loads them); ``--export-pth`` saves the trained state dict, which has
+the reference's key layout.  Runs on the card unless ``--device cpu``;
+``--tp`` above 1 is multi-GPU work (ROADMAP.md Queue 1, item 9) and is
+refused.
 """
 
 import argparse
@@ -151,8 +152,7 @@ def main(argv=None):
     parser.add_argument("--encoder", default="vits",
                         choices=["vits", "vitb", "vitl", "vitg", "tiny"])
     parser.add_argument("--checkpoint", default=None,
-                        help="reference .pth initial weights (default "
-                             "random)")
+                        help=".pth/.npz initial weights (default random)")
     parser.add_argument("--data-dir", default=None)
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--steps", type=int, default=100)
@@ -200,7 +200,11 @@ def main(argv=None):
     from vda_tpu_torch.config import get_config
     from vda_tpu_torch.models.vda import VideoDepthAnything
     from vda_tpu_torch.parallel.trainer import train
-    from vda_tpu_torch.utils.convert import init_random, load_torch_checkpoint
+    from vda_tpu_torch.utils.convert import (
+        init_random,
+        load_npz_checkpoint,
+        load_torch_checkpoint,
+    )
 
     refuse_unported(args)
     cfg = get_config(args.encoder)
@@ -225,8 +229,10 @@ def main(argv=None):
         model = init_random(cfg, torch.Generator(device=args.device)
                             .manual_seed(0), device=args.device)
     else:
-        model = load_torch_checkpoint(
-            args.checkpoint, VideoDepthAnything(cfg, device=args.device))
+        load = load_npz_checkpoint if args.checkpoint.endswith(".npz") \
+            else load_torch_checkpoint
+        model = load(args.checkpoint,
+                     VideoDepthAnything(cfg, device=args.device))
 
     if args.manifest:
         data = manifest_clip_iter(args.manifest, args.batch, args.frames,

@@ -1,7 +1,7 @@
 """Causal streaming inference with a fixed-size cache, PyTorch.
 
-Counterpart of ``vda_tpu/infer/streaming.py`` (its default flavor), itself a
-rebuild of reference video_depth_stream.py:77-161:
+Counterpart of ``vda_tpu/infer/streaming.py``, itself a rebuild of
+reference video_depth_stream.py:77-161:
 
   * first frame: a T=1 forward whose 8 cache rows stand in for a whole
     32-frame window (the replication trick, reference :104-121);
@@ -18,9 +18,22 @@ value is the JAX package's, not its TPU layout: buffers are not padded to a
 row tile, the context is gathered with ``index_select`` on the 31 rows
 instead of a one-hot product, and the new rows are written into the
 buffers in place.  ``submit_group`` runs k frames in one call, as JAX's
-does.  The ring/direct/slide flavors, the tensor-parallel mesh and the
-``VDA_STREAM_*`` environment knobs are not ported: ``ctx_kernel`` and
-``cache_dtype`` are arguments only.
+does.
+
+With ``ctx_kernel`` the kv cache's attention runs in K6: over the 31
+gathered context rows while the warmup lasts, then, from the first step
+whose 31 context entries sit in 31 distinct rows (step 42), over the whole
+45-row buffers in place (JAX's direct flavour, from
+``vda_tpu/infer/streaming_experimental.py``): a (45,) position map and
+valid mask (``_pos_map``) reach the card by the stream's pinned copies,
+and K6 reads only the valid rows, so the context is neither gathered nor
+written.  ``cache_dtype`` and ``ctx_kernel`` left at None resolve from
+``VDA_STREAM_CACHE_DTYPE`` / ``VDA_STREAM_KV8`` and
+``VDA_STREAM_CTX_KERNEL`` / ``VDA_STREAM_DIRECT`` (``utils/knobs.py``).
+JAX's ring and sliding cache layouts (``VDA_STREAM_RING``,
+``VDA_STREAM_SLIDE``) are refused: on the H100 they gave the default
+stream's depths in more device time a step (PERF.md, Findings).  The
+tensor-parallel mesh is multi-GPU work.
 
 ``submit`` returns without waiting for the device, as JAX's does: the frame
 and the context row ids reach the card by non-blocking copies from pinned
@@ -47,7 +60,9 @@ from vda_tpu_torch.models.vda import (
     forward_features,
     kernel_set,
 )
+from vda_tpu_torch.ops import stream_kernel as sk
 from vda_tpu_torch.ops.resize import resize_bilinear
+from vda_tpu_torch.utils import knobs
 from vda_tpu_torch.utils.transform import (
     compute_resize_hw,
     effective_input_size,
@@ -61,6 +76,37 @@ _CTX = INFER_LEN - 1  # 31 context entries
 # margin (checked by _advance_bookkeeping).
 _RING = STREAM_MAX_CACHE + 2
 _BUF_ROWS = _RING + 1
+# the cache dtype of cache_dtype=None with no knob set (JAX's
+# _DEFAULT_CACHE_DTYPE)
+_DEFAULT_CACHE_DTYPE = "bf16"
+
+
+def _resolve_cache_dtype(cache_dtype: Optional[str]) -> str:
+    """JAX's ``_resolve_cache_dtype``: an explicit ``cache_dtype`` wins;
+    None reads ``VDA_STREAM_CACHE_DTYPE``, else int8 for
+    ``VDA_STREAM_KV8=1``, else ``_DEFAULT_CACHE_DTYPE``."""
+    if cache_dtype is not None:
+        return cache_dtype
+    env = knobs.value("VDA_STREAM_CACHE_DTYPE")
+    if env:
+        return env
+    if knobs.flag("VDA_STREAM_KV8"):
+        return "int8"
+    return _DEFAULT_CACHE_DTYPE
+
+
+def _pos_map(ctx_rows: List[int]):
+    """The in-place read's row -> context position table (JAX
+    ``streaming_experimental._pos_map``).  ctx_rows: 31 distinct buffer rows
+    in context order.  Returns (pos_map (45,) int32, valid (45,) bool):
+    pos_map[r] is the context position of row r (0 where valid[r] is
+    False)."""
+    pos_map = np.zeros((_BUF_ROWS,), np.int32)
+    valid = np.zeros((_BUF_ROWS,), np.bool_)
+    for i, r in enumerate(ctx_rows):
+        pos_map[r] = i
+        valid[r] = True
+    return pos_map, valid
 
 
 class _Upload:
@@ -225,6 +271,60 @@ def _stream_step_group(model, frames_u8, buffers, ctx_rows, held_at, net_hw,
 
 
 @torch.no_grad()
+def _stream_step_direct(model, frame_u8, buffers, pos_map, valid, net_hw,
+                        out_hw, dtype, attn_impl, fuse_proj):
+    """One causal step whose temporal attention reads the kv buffers in
+    place (K6 with ``pos_map`` and ``valid``, (45,) device tensors; JAX
+    ``_stream_step_direct``).  Reads the buffers and does not write them.
+    Returns (depth, the flat new rows)."""
+    x = preprocess_frames(frame_u8[None], net_hw, dtype=dtype)[None]
+    feats = forward_features(model, x, attn_impl, fuse_proj)
+    cache = [(buffers[2 * i], buffers[2 * i + 1], pos_map, valid)
+             for i in range(len(buffers) // 2)]
+    depth, rows = forward_depth(model, feats, x.shape,
+                                cached_hidden_state_list=cache,
+                                cache_kind="kv", attn_impl=attn_impl)
+    return _to_out_depth(depth, out_hw), _leaves(rows, "kv")
+
+
+@torch.no_grad()
+def _stream_step_group_direct(model, frames_u8, buffers, pos_maps, valids,
+                              write_pos, net_hw, out_hw, dtype, attn_impl,
+                              fuse_proj):
+    """k in-place steps in one call (JAX ``_stream_step_group_direct``): the
+    encoder over the k frames in one batch, the cache-coupled head stage
+    frame by frame with K6 reading the buffers in place at ``pos_maps[j]``
+    / ``valids[j]`` ((k, 45) device tensors), each frame's new rows written
+    into the buffers at ``write_pos[j]`` before the next frame's stage reads
+    them, and one output tail over the k frames.  Returns depths (k, H, W)
+    fp32."""
+    cfg = model.cfg
+    x = preprocess_frames(frames_u8, net_hw, dtype=dtype)[None]
+    feats = forward_features(model, x, attn_impl, fuse_proj)
+    kernels, ln_kernel = kernel_set(attn_impl)
+    h, w = x.shape[2:4]
+    patch_hw = (h // cfg.vit.patch_size, w // cfg.vit.patch_size)
+    stage_outs = []
+    for j in range(frames_u8.shape[0]):
+        feats_j = [(t[j:j + 1], None if c is None else c[j:j + 1])
+                   for t, c in feats]
+        cache = [(buffers[2 * i], buffers[2 * i + 1], pos_maps[j], valids[j])
+                 for i in range(len(buffers) // 2)]
+        stage_out, rows = dpt_head_temporal_stage(
+            model.head, feats_j, patch_hw, 1, cfg,
+            cached_hidden_state_list=cache, cache_kind="kv",
+            kernels=kernels, ln_kernel=ln_kernel)
+        stage_outs.append(stage_out)
+        _write_step(buffers, _leaves(rows, "kv"), write_pos[j])
+    batched = tuple(torch.cat([s[i] for s in stage_outs]) for i in range(3))
+    depth = dpt_head_temporal_tail(model.head, batched, patch_hw,
+                                   micro_batch_size=len(stage_outs))
+    depth = torch.relu(resize_bilinear(depth, (h, w), align_corners=True))
+    depths = resize_bilinear(depth.float(), out_hw, align_corners=True)
+    return depths[..., 0]
+
+
+@torch.no_grad()
 def _write_step(buffers, new_rows, write_pos: int) -> None:
     """Write each new (BHW, 1, C) row into its buffer at ``write_pos``, in
     place."""
@@ -253,25 +353,47 @@ class StreamingDepth:
     frame, so a step projects only the new frame; "h" caches the pre-PE
     hidden states as the reference does.  cache_dtype: "bf16" keeps rows in
     the working dtype, "int8" quantises each row with one scale
-    (``_write_step_q8``).  ctx_kernel: run the kv cache's attention in K6;
-    it needs cache_kind="kv" and the kernels (attn_impl "auto").  fuse_proj:
-    run the encoder blocks through K7 (JAX's ``VDA_ATTN_FUSE_PROJ=1``); it
-    needs the kernels.  (K10's gate refuses every batch-1 resize, so the
-    stream offers no ``resize_kernel``.)  fp32: run the network in fp32
-    instead of bf16.  attn_impl: "auto" (the kernels), "xla" (JAX's
-    training set: K2 only) or "plain" (plain PyTorch everywhere)."""
+    (``_write_step_q8``); None resolves as JAX does
+    (``_resolve_cache_dtype``).  ctx_kernel: run the kv cache's attention in
+    K6, reading the buffers in place once the context's rows are distinct
+    (``_direct_ok``); it needs cache_kind="kv" and the kernels (attn_impl
+    "auto").  None reads ``VDA_STREAM_CTX_KERNEL`` and
+    ``VDA_STREAM_DIRECT``, which yield where the kernel does not apply; an
+    explicit True there raises.  fuse_proj: run the encoder blocks through
+    K7 (JAX's ``VDA_ATTN_FUSE_PROJ=1``, which None reads); it needs the
+    kernels.  (K10's gate refuses every batch-1 resize, so the stream
+    offers no ``resize_kernel``.)  fp32: run the network in fp32 instead of
+    bf16.  attn_impl: "auto" (the kernels), "xla" (JAX's training set: K2
+    only) or "plain" (plain PyTorch everywhere)."""
 
     def __init__(self, model: VideoDepthAnything, input_size: int = 518,
                  fp32: bool = False, attn_impl: str = "auto",
-                 cache_kind: str = "kv", cache_dtype: str = "bf16",
-                 ctx_kernel: bool = False, fuse_proj: bool = False):
+                 cache_kind: str = "kv", cache_dtype: Optional[str] = None,
+                 ctx_kernel: Optional[bool] = None,
+                 fuse_proj: Optional[bool] = None):
+        for name in ("VDA_STREAM_RING", "VDA_STREAM_SLIDE"):
+            if knobs.flag(name):
+                raise ValueError(
+                    f"{name}=1 picks a cache layout this package does not "
+                    "have: on the H100 it gave the default stream's depths "
+                    "in more device time a step (PERF.md, Findings); unset "
+                    "it, or use ctx_kernel for K6's in-place read")
+        fuse_proj = knobs.fuse_proj(fuse_proj, attn_impl)
         kernel_set(attn_impl, fuse_proj=fuse_proj)  # validates them
         if cache_kind not in ("kv", "h"):
             raise ValueError(f"cache_kind must be kv or h, got {cache_kind!r}")
+        cache_dtype = _resolve_cache_dtype(cache_dtype)
         if cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"cache_dtype must be bf16 or int8, "
                              f"got {cache_dtype!r}")
-        if ctx_kernel and (cache_kind != "kv" or attn_impl != "auto"):
+        unsupported = cache_kind != "kv" or attn_impl != "auto"
+        if ctx_kernel is None:
+            # the knobs yield where the kernel does not apply; only an
+            # explicit True raises (JAX's rule)
+            ctx_kernel = (knobs.flag("VDA_STREAM_CTX_KERNEL")
+                          or knobs.flag("VDA_STREAM_DIRECT")) \
+                and not unsupported
+        if ctx_kernel and unsupported:
             raise ValueError("ctx_kernel requires cache_kind='kv' and the "
                              "kernels (attn_impl='auto')")
         self.model = model
@@ -282,9 +404,20 @@ class StreamingDepth:
         self.cache_kind = cache_kind
         self.cache_dtype = cache_dtype
         self.ctx_kernel = bool(ctx_kernel)
-        self.fuse_proj = bool(fuse_proj)
+        self.fuse_proj = fuse_proj
+        cfg = model.cfg
+        widths = [mm.temporal_transformer.proj_in.weight.shape[0]
+                  for mm in model.head.motion_modules]
+        # K6 may read the buffers in place (JAX's direct gate): rows kept
+        # in the working dtype, APE, and every motion module's width one
+        # that K6 takes
+        self._direct = self.ctx_kernel and cache_dtype == "bf16" and all(
+            sk.use_kernel(1, c, cfg.num_attention_heads, cfg.pe)
+            for c in widths)
         self._upload_frame = _Upload(self.device)
         self._upload_rows = _Upload(self.device)
+        self._upload_pos = _Upload(self.device)
+        self._upload_valid = _Upload(self.device)
         self.reset()
 
     def reset(self) -> None:
@@ -330,14 +463,40 @@ class StreamingDepth:
         # bookkeeping on a copy, committed once the step has run
         order = list(self.order)
         ctx, new_id = _advance_bookkeeping(step_id, order)
-        ctx_rows = self._upload_rows(torch.tensor([_row(i) for i in ctx]))
-        depth, rows = _stream_step(
-            self.model, frame_u8, self.buffers, self.scales, ctx_rows,
-            self.net_hw, self.out_hw, self.dtype, self.attn_impl,
-            self.cache_kind, self.ctx_kernel, self.fuse_proj)
+        ctx_rows = [_row(i) for i in ctx]
+        if self._direct_ok(ctx_rows):
+            pos_map, valid = self._maps(ctx_rows)
+            depth, rows = _stream_step_direct(
+                self.model, frame_u8, self.buffers, pos_map, valid,
+                self.net_hw, self.out_hw, self.dtype, self.attn_impl,
+                self.fuse_proj)
+        else:
+            depth, rows = _stream_step(
+                self.model, frame_u8, self.buffers, self.scales,
+                self._upload_rows(torch.tensor(ctx_rows)), self.net_hw,
+                self.out_hw, self.dtype, self.attn_impl, self.cache_kind,
+                self.ctx_kernel, self.fuse_proj)
         self._commit(rows, _row(new_id))
         self.id, self.order = step_id, order
         return depth
+
+    def _direct_ok(self, *ctx_rows) -> bool:
+        """K6 reads the buffers in place for these contexts' rows: the
+        stream's gate (``_direct``) holds and every context entry sits in a
+        distinct row (in the warmup the anchor row fills several positions,
+        which only the gather expresses; from step 42 on, never)."""
+        return self._direct and all(len(set(r)) == len(r) for r in ctx_rows)
+
+    def _maps(self, *ctx_rows):
+        """The position maps and valid flags of contexts, on the device by
+        the pinned non-blocking copies (stacked when there are several)."""
+        maps = [_pos_map(r) for r in ctx_rows]
+        pos = np.stack([m for m, _ in maps])
+        valid = np.stack([v for _, v in maps]).view(np.uint8)
+        if len(ctx_rows) == 1:
+            pos, valid = pos[0], valid[0]
+        return (self._upload_pos(torch.from_numpy(pos)),
+                self._upload_valid(torch.from_numpy(valid)))
 
     def submit_group(self, frames) -> torch.Tensor:
         """Run k frames ((k, H, W, 3) uint8, numpy or tensor) in one call
@@ -347,9 +506,13 @@ class StreamingDepth:
         frame by frame, so the cache afterwards is bit-identical to k
         ``submit`` calls; the encoder and the output tail run batched over
         the k frames, so the depths agree with ``submit``'s to the order of
-        summation.  The new rows are written once the group has run.  An
-        int8 cache or ``ctx_kernel`` runs k ``submit`` calls, as JAX does.
-        The stream must have had its first frame (``submit``)."""
+        summation.  The new rows are written once the group has run.  With
+        ``ctx_kernel``, a group whose every frame K6 reads in place
+        (``_direct_ok``) runs as one call that writes each frame's rows
+        before the next frame's stage (JAX's direct group); any other
+        ``ctx_kernel`` group, and an int8 cache, runs k ``submit`` calls, as
+        JAX does, so K6 runs every step.  The stream must have had its
+        first frame (``submit``)."""
         if self.net_hw is None:
             raise RuntimeError("initialize the stream with "
                                "submit(first_frame) before submit_group")
@@ -357,8 +520,6 @@ class StreamingDepth:
         if tuple(frames.shape[1:3]) != self.out_hw:
             raise ValueError(f"frame size changed mid-stream: "
                              f"{tuple(frames.shape[1:3])} after {self.out_hw}")
-        if self.cache_dtype == "int8" or self.ctx_kernel:
-            return torch.stack([self.submit(f) for f in frames])
         # bookkeeping of the k steps on a copy, committed once they have run
         order = list(self.order)
         ids, ctx_rows, held_at = [], [], []
@@ -369,13 +530,22 @@ class StreamingDepth:
                             if c in earlier])
             ctx_rows.append([_row(c) for c in ctx])
             ids.append(new_id)
-        depths, held = _stream_step_group(
-            self.model, self._upload_frame(frames), self.buffers,
-            self._upload_rows(torch.tensor(ctx_rows)), held_at, self.net_hw,
-            self.out_hw, self.dtype, self.attn_impl, self.cache_kind,
-            self.fuse_proj)
-        for new_id, rows in zip(ids, held):
-            self._commit(rows, _row(new_id))
+        if self._direct_ok(*ctx_rows):
+            pos_maps, valids = self._maps(*ctx_rows)
+            depths = _stream_step_group_direct(
+                self.model, self._upload_frame(frames), self.buffers,
+                pos_maps, valids, [_row(i) for i in ids], self.net_hw,
+                self.out_hw, self.dtype, self.attn_impl, self.fuse_proj)
+        elif self.cache_dtype == "int8" or self.ctx_kernel:
+            return torch.stack([self.submit(f) for f in frames])
+        else:
+            depths, held = _stream_step_group(
+                self.model, self._upload_frame(frames), self.buffers,
+                self._upload_rows(torch.tensor(ctx_rows)), held_at,
+                self.net_hw, self.out_hw, self.dtype, self.attn_impl,
+                self.cache_kind, self.fuse_proj)
+            for new_id, rows in zip(ids, held):
+                self._commit(rows, _row(new_id))
         self.id, self.order = self.id + len(frames), order
         return depths
 

@@ -22,6 +22,7 @@ from vda_tpu_torch.config import INFER_LEN, KEYFRAMES, OVERLAP
 from vda_tpu_torch.infer.stitching import stitch_windows
 from vda_tpu_torch.models.vda import VideoDepthAnything, forward
 from vda_tpu_torch.ops.resize import resize_bilinear
+from vda_tpu_torch.utils import knobs
 from vda_tpu_torch.utils.transform import (
     compute_resize_hw,
     effective_input_size,
@@ -85,8 +86,8 @@ def infer_video_depth(
     attn_impl: str = "auto",
     micro_batch_size: int = 16,
     progress: Optional[callable] = None,
-    fuse_proj: bool = False,
-    resize_kernel: bool = False,
+    fuse_proj: Optional[bool] = None,
+    resize_kernel: Optional[bool] = None,
     window_batch: int = 1,
 ):
     """frames: (N, H, W, 3) uint8 RGB.  Returns (depths (N, H, W) fp32, fps).
@@ -96,13 +97,16 @@ def infer_video_depth(
     ``fp32=False`` runs the network in bfloat16, on the model's device.
     ``fuse_proj`` (K7 for the encoder blocks) and ``resize_kernel`` (K10 for
     the tail's upsamples) are the JAX package's ``VDA_ATTN_FUSE_PROJ`` and
-    ``VDA_RESIZE_KERNEL`` switches, off by default as there; both need
-    ``attn_impl="auto"``.  ``window_batch``: windows a forward takes, as
-    its batch (JAX's ``window_batch`` on one device); the last batch is
-    filled up by repeating its last window, whose depths are dropped, so
-    every forward has one shape."""
+    ``VDA_RESIZE_KERNEL`` switches, off by default as there (None reads
+    those knobs, ``utils/knobs.py``); both need ``attn_impl="auto"``.
+    ``window_batch``: windows a forward takes, as its batch (JAX's
+    ``window_batch`` on one device); the last batch is filled up by
+    repeating its last window, whose depths are dropped, so every forward
+    has one shape."""
     cfg = model.cfg
     device = next(model.parameters()).device
+    fuse_proj = knobs.fuse_proj(fuse_proj, attn_impl)
+    resize_kernel = knobs.resize_kernel(resize_kernel, attn_impl)
     n_frames, frame_h, frame_w = frames.shape[:3]
     size = effective_input_size(frame_h, frame_w, input_size)
     net_hw = compute_resize_hw(frame_h, frame_w, size)

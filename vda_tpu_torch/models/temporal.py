@@ -23,11 +23,13 @@ else each attention sub-block runs in K4 where it takes the width
 (``attn_fused_supported``); every other attention over whole sequences of
 at most 64 frames runs in K5 (``tiny_seq_kernel.use_kernel``), the
 streaming first step included; the kv cache goes through K6 when the stream
-asks for it (``stream_kernel.use_kernel``).  ``kernels=False`` turns all
-four off; the LayerNorms take K2 by ``ln_kernel`` (default: ``kernels``),
-so JAX's training set (``attn_impl="xla"``) is ``kernels=False,
-ln_kernel=True``.  The JAX gates keep K3, K4 and K6 to APE, so under RoPE
-K5 takes every attention over whole sequences and the kv cache runs plain.
+asks for it (``stream_kernel.use_kernel``), over the gathered context or,
+once the context's rows are distinct, over the cache buffers in place.
+``kernels=False`` turns all four off; the LayerNorms take K2 by
+``ln_kernel`` (default: ``kernels``), so JAX's training set
+(``attn_impl="xla"``) is ``kernels=False, ln_kernel=True``.  The JAX gates
+keep K3, K4 and K6 to APE, so under RoPE K5 takes every attention over
+whole sequences and the kv cache runs plain.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vda_tpu_torch.config import ModelConfig
+from vda_tpu_torch.config import INFER_LEN, ModelConfig
 from vda_tpu_torch.ops import stream_kernel as sk
 from vda_tpu_torch.ops import temporal_kernel as tk
 from vda_tpu_torch.ops import tiny_seq_kernel as ts
@@ -189,10 +191,14 @@ def _temporal_attention(attn: TemporalAttention, h, cfg: ModelConfig, cache,
     cache: None; a (BD, T_cache, C) tensor of pre-PE hidden states (the
     "h" cache); a ``(k, v)`` tuple of pre-PE projections (the "kv" cache,
     ``_temporal_attention_kv``); or ``(k, v, "ctx")``, the same handed to
-    K6 (``_temporal_attention_kv_ctx``).  Returns (out (BD, T_new, C),
+    K6 (``_temporal_attention_kv_ctx``); or ``(k_buf, v_buf, pos_map,
+    valid)``, the whole cache buffers read in place by K6
+    (``_temporal_attention_kv_direct``).  Returns (out (BD, T_new, C),
     cache_row): the new rows in the cache's kind, (k_new, v_new) when
     ``want_kv``."""
     if isinstance(cache, tuple):
+        if len(cache) == 4:
+            return _temporal_attention_kv_direct(attn, h, cfg, cache, kernels)
         if len(cache) == 3:
             return _temporal_attention_kv_ctx(attn, h, cfg, cache, kernels)
         return _temporal_attention_kv(attn, h, cfg, cache)
@@ -286,6 +292,46 @@ def _temporal_attention_kv_ctx(attn: TemporalAttention, h, cfg: ModelConfig,
     o = sk.stream_kv_attention(q, kn, vn, kc.to(h.dtype), vc.to(h.dtype),
                                pe_k[:t_ctx], pe_v[:t_ctx],
                                sk.all_valid(t_ctx, h.device), heads,
+                               (c // heads) ** -0.5)
+    return linear(attn.to_out[0], o[:, None]), (k_new, v_new)
+
+
+def _temporal_attention_kv_direct(attn: TemporalAttention, h,
+                                  cfg: ModelConfig, cache,
+                                  kernels: bool = True):
+    """The kv cache's buffers read in place by K6 (JAX
+    ``_temporal_attention_kv_direct``), with no context gathered: cache is
+    ``(k_buf, v_buf, pos_map, valid)``, the (BD, rows, C) pre-PE K/V
+    buffers of the stream, each row's position in the 31-entry context
+    (``pos_map``, (rows,) int, arbitrary where not valid) and the rows that
+    form the context (``valid``, (rows,) uint8 or bool).  Each row gets the
+    projected encoding of its context position (``index_select`` by
+    ``pos_map`` clipped to [0, 30]); K6 never reads a row that is not
+    valid.  The same function as ``_temporal_attention_kv_ctx`` over the
+    gathered context, its rows summed in buffer order.  The stream's gate
+    (``infer/streaming.StreamingDepth._direct_ok``) sends only what K6
+    takes; anything else raises, since no other path reads the buffers in
+    place."""
+    k_buf, v_buf, pos_map, valid = cache
+    bd, t_new, c = h.shape
+    heads = cfg.num_attention_heads
+    if not (kernels and sk.use_kernel(t_new, c, heads, cfg.pe)):
+        raise ValueError(f"the in-place cache read needs K6: {t_new} new "
+                         f"frames of width {c}, {heads} heads, pe "
+                         f"{cfg.pe!r}, kernels {kernels}")
+    t_full = INFER_LEN  # the 31 context positions and the new frame
+    pe = _pe(attn, t_full, h.dtype)
+    k_new = linear(attn.to_k, h)  # pre-PE, what the cache keeps
+    v_new = linear(attn.to_v, h)
+    pe_k = linear(attn.to_k, pe)
+    pe_v = linear(attn.to_v, pe)
+    q = linear(attn.to_q, h + pe[None, t_full - 1:t_full])[:, 0]
+    kn = k_new[:, 0] + pe_k[t_full - 1]
+    vn = v_new[:, 0] + pe_v[t_full - 1]
+    idx = pos_map.clamp(0, t_full - 2)
+    o = sk.stream_kv_attention(q, kn, vn, k_buf, v_buf,
+                               pe_k.index_select(0, idx),
+                               pe_v.index_select(0, idx), valid, heads,
                                (c // heads) ** -0.5)
     return linear(attn.to_out[0], o[:, None]), (k_new, v_new)
 

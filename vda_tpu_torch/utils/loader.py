@@ -1,9 +1,9 @@
-"""The one way the port's entry points load a model: a reference ``.pth`` or
-a seeded random initialisation, then the cast inference runs with.
+"""The one way the port's entry points load a model: a reference ``.pth``,
+the JAX package's ``.npz`` params, or a seeded random initialisation, then
+the cast inference runs with.
 
 The counterpart of ``vda_tpu/utils/loader.py`` ``load_model_params``, which
-every JAX app loads through.  The JAX package's own ``.npz`` pytree format
-is not read here.
+every JAX app loads through.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from vda_tpu_torch.models.vda import VideoDepthAnything
 from vda_tpu_torch.utils.convert import (
     cast_params_for_inference,
     init_random,
+    load_npz_checkpoint,
     load_torch_checkpoint,
 )
 
@@ -33,7 +34,9 @@ def load_model_params(
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[ModelConfig, VideoDepthAnything]:
     """(cfg, model) from a reference ``.pth`` (``checkpoint``, by default
-    ``./checkpoints/<checkpoint_name>.pth``) or, with ``random_init``, from
+    ``./checkpoints/<checkpoint_name>.pth``), a JAX-package ``.npz`` params
+    file (``checkpoint`` ending in ``.npz``: ``load_npz_checkpoint``, bf16
+    and tensor-parallel files included) or, with ``random_init``, from
     ``init_random`` seeded by ``generator`` (by default a ``torch.Generator``
     on ``device`` seeded 0; JAX's ``PRNGKey(0)`` gives other values).
     ``cast_bf16`` stores the weights in bf16 once, as JAX's loader does
@@ -48,18 +51,14 @@ def load_model_params(
     else:
         ckpt = checkpoint or os.path.join(
             "./checkpoints", checkpoint_name(encoder, metric) + ".pth")
-        if ckpt.endswith(".npz"):
-            raise ValueError(
-                f"{ckpt}: .npz is the JAX package's pytree format; the port "
-                f"loads reference-format .pth checkpoints (export one with "
-                f"vda_tpu.utils.convert.save_torch_checkpoint)")
         if not os.path.exists(ckpt):
             raise FileNotFoundError(
                 f"checkpoint not found: {ckpt} — pass an explicit checkpoint "
                 f"path, run scripts/get_weights.sh, or use random init "
                 f"(testing only)")
-        model = load_torch_checkpoint(ckpt, VideoDepthAnything(cfg,
-                                                               device=device))
+        load = load_npz_checkpoint if ckpt.endswith(".npz") \
+            else load_torch_checkpoint
+        model = load(ckpt, VideoDepthAnything(cfg, device=device))
     if cast_bf16:
         cast_params_for_inference(model)
     return cfg, model
