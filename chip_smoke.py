@@ -114,7 +114,22 @@ with every launch counter set to 0 just before it and read just after:
     numbers printed beside), and a steady vitl submit, a vitl window
     ``forward`` and a steady vitl ``ctx_kernel`` submit that reads its
     cache in place make no synchronising call under
-    ``torch.cuda.set_sync_debug_mode("error")``.
+    ``torch.cuda.set_sync_debug_mode("error")``;
+  * ``mesh``: the multi-GPU paths (``vda_tpu_torch/parallel/mesh.py``) on
+    two ranks sharing the one card, spawned after this process has freed
+    its models and joined by gloo over the card's tensors (NCCL refuses
+    two ranks on one device: its error is printed), each held to a
+    one-rank run made here first: a dp=2 fan-out of the 54-frame video
+    (bit-identical), a tp=2 vitl window (bench.py's test; K1 24 on 8
+    heads, K2 64, K5 8 at the local shapes, K3/K4/K7 0, 56 all-reduces a
+    forward), a tp=2 kv stream of 48 steps with a ``submit_group`` of 4
+    (each step within 2e-2, ``order`` equal, half the cache a rank) and 8
+    int8 steps, and 2 tp=2 + sp train steps of 1x8x518x518 fp32 with remat
+    on a sparse mask (loss within 1e-4, grad_norm within 1e-3 relative; K2
+    on the rank's 685 tokens a frame); each rank's ms, peak memory,
+    collective bytes, and the ms its collectives take in a pass of the
+    window and of a train step with each collective timed.  ``python3 chip_smoke.py --only mesh`` runs the
+    environment, the build and this phase alone.
 
 K1 and K9 (bf16, head width 64) run the Hopper loop
 (csrc/flash_attention_sm90.cuh: TMA, wgmma, warp specialisation): their
@@ -2917,7 +2932,517 @@ def phase_host_sync(model, frames):
                              f"{h}")
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase mesh: the multi-GPU paths, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_TP = 2
+MESH_GROUP_AT = 20  # the tp stream's submit_group of 4 starts at this step
+N_MESH_INT8 = 8
+N_MESH_TRAIN = 2
+MESH_TIMEOUT_S = 480
+# a tp=2 vitl window a rank: K1 its 24 blocks on 8 of the 16 heads, K2 all
+# 64 norms (K3, K4 and K7 stay off under tp: their epilogues add the
+# residual before the row-parallel sum), K5 each motion module's two
+# attention sub-blocks at the local shape: (BHW, 32, 512), 4 heads of 128,
+# at mm0/mm1 and (BHW, 32, 128), 4 heads of 32, at mm2/mm3
+PER_TP_WINDOW = {**ZERO, "K1": 24, "K2": 64, "K5": 8}
+# one all-reduce after each row-parallel projection: 2 an encoder block, 1
+# a temporal attention block (4 modules x 2)
+TP_ALL_REDUCES = 2 * 24 + 4 * 2
+# the sequence-parallel train step's K2 calls on a rank's 8 x 685 tokens:
+# each block's two norms, again in the remat recompute, and the 4 taps
+SP_K2_LOCAL = 2 * 24 * 2 + 4
+
+
+def _nccl_probe(rank, store, queue):
+    """Two ranks' NCCL all-reduce on the one card."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=rank, world_size=2)
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        queue.put((rank, None))
+    except Exception as e:  # noqa: BLE001 — the refusal is the result
+        queue.put((rank, f"{type(e).__name__}: {e}"))
+
+
+def nccl_refusal(work: str) -> str:
+    """NCCL's error for two ranks on one device (its text), or "" if it
+    took them."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_probe,
+                         args=(r, os.path.join(work, "nccl_store"), queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    msgs = {}
+    deadline = time.monotonic() + 120
+    try:
+        while len(msgs) < 2 and time.monotonic() < deadline:
+            try:
+                r, m = queue.get(timeout=1)
+                msgs[r] = m
+            except Exception:  # noqa: BLE001 — queue.Empty: keep waiting
+                pass
+    finally:
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if len(msgs) < 2:
+        raise AssertionError("the NCCL probe's ranks did not answer")
+    return msgs[0] or msgs[1] or ""
+
+
+def _mesh_rank(rank, work):
+    """A rank of phase mesh: gloo over the card's tensors, both ranks on
+    cuda:0.  Writes its results to ``work``/rank<r>.pt."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=2)
+    try:
+        out = _mesh_rank_body(rank, work)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def timed_collectives(fn):
+    """fn() with every collective of ``parallel/mesh`` bracketed by
+    device syncs and timed on the host: (fn's result, ms spent in the
+    collectives, gloo's host staging included).  A pass of its own: the
+    syncs change the overlap of the pass they time."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+    real = {n: getattr(dist, n) for n in names}
+    spent = [0.0]
+
+    def timed(f):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    for n in names:
+        setattr(dist, n, timed(real[n]))
+    try:
+        out = fn()
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+    return out, 1e3 * spent[0]
+
+
+def _check(what: str, counts, want) -> None:
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} != {want}")
+
+
+def _mesh_streams(model, mesh, frames, tpm, work):
+    """The tp bf16 kv stream (a group of 4 at MESH_GROUP_AT) and the int8
+    one on a rank, launches and all-reduces asserted a call."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+
+    out = {}
+    for cd, n in (("bf16", len(frames)), ("int8", N_MESH_INT8)):
+        s = vt.StreamingDepth(model, cache_dtype=cd, mesh=mesh)
+        depths, orders, ms, total = [], [], [], dict(ZERO)
+        i = 0
+        while i < n:
+            group = cd == "bf16" and i == MESH_GROUP_AT
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            tpm.reset_collective_counts()
+            t0 = time.perf_counter()
+            if group:
+                d = s.submit_group(frames[i:i + 4])
+            else:
+                d = s.submit(frames[i])[None]
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts = ops.launch_counts()
+            coll = tpm.collective_counts()
+            want = ({**ZERO, "K1": 24, "K2": ENC_K2 + 4 * MM_K2} if group
+                    else {**PER_STEP, "K5": 8 if i == 0 else 0})
+            _check(f"tp stream {cd} step {i}", counts, want)
+            if not by_loop_ok(counts) or not k5_k8_by_loop_ok(counts):
+                raise AssertionError(f"tp stream {cd} step {i}: a K1 or K5 "
+                                     "launch missed the Hopper code")
+            ar = 48 + 8 * (4 if group else 1)
+            if coll["all_reduce"] != ar or coll["all_gather"] \
+                    or coll["reduce_scatter"]:
+                raise AssertionError(f"tp stream {cd} step {i}: "
+                                     f"collectives {coll}")
+            total = {k: total[k] + counts[k] for k in total}
+            depths.append(d.cpu())
+            orders.extend([list(s.order)] * len(d))
+            i += len(d)
+        np.save(os.path.join(work, f"stream_{cd}_{mesh.rank}.npy"),
+                torch.cat(depths).numpy())
+        out[cd] = {"orders": orders, "step_ms": ms,
+                   "cache_bytes": s.cache_bytes(), "launches": total}
+    return out
+
+
+def _mesh_rank_body(rank, work):
+    import dataclasses
+
+    import vda_tpu_torch as vt
+    from vda_tpu_torch import ops
+    from vda_tpu_torch.ops import norm_kernel
+    from vda_tpu_torch.parallel import mesh as tpm
+    from vda_tpu_torch.parallel.train import (init_train_state,
+                                              make_optimizer, make_train_step)
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    frames = np.load(os.path.join(work, "frames.npy"))
+    res = {"rank": rank}
+    launches = dict(ZERO)
+
+    def add(c):
+        for k in launches:
+            launches[k] += c[k]
+
+    # 1. dp=2: the window fan-out, each rank with the whole model
+    _, model = vt.load_model_params("vitl", random_init=True)
+    model.requires_grad_(False)
+    dp_mesh = tpm.make_mesh(tp=1, device="cuda:0")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tpm.reset_collective_counts()
+    t0 = time.perf_counter()
+    video, _ = vt.infer_video_depth(model, frames, 30.0, mesh=dp_mesh)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    add(counts)
+    # 3 windows fill 2 batches of 2: a rank runs 2 windows
+    _check("fan-out", counts, {k: 2 * v for k, v in PER_WINDOW.items()})
+    np.save(os.path.join(work, f"fanout_{rank}.npy"), video)
+    res["fanout"] = {"wall_s": time.perf_counter() - t0,
+                     "collectives": tpm.collective_counts()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. tp=2: one 1x32 window
+    _, model = vt.load_model_params("vitl", random_init=True)
+    model.requires_grad_(False)
+    mesh = tpm.make_mesh(tp=MESH_TP, device="cuda:0")
+    tpm.shard_model(model, mesh)
+    u8 = torch.from_numpy(frames[:32][None]).cuda()
+    x = preprocess_frames(u8, (SIZE, SIZE), dtype=torch.bfloat16)
+    with torch.no_grad():
+        vt.forward(model, x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tpm.reset_collective_counts()
+        t0 = time.perf_counter()
+        depth = vt.forward(model, x)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        coll = tpm.collective_counts()
+        peak = torch.cuda.max_memory_allocated()
+    add(counts)
+    _check("tp window", counts, PER_TP_WINDOW)
+    if not by_loop_ok(counts) or not k5_k8_by_loop_ok(counts):
+        raise AssertionError("tp window: a K1 or K5 launch missed the Hopper "
+                             "code")
+    if (coll["all_reduce"], coll["all_gather"], coll["reduce_scatter"]) \
+            != (TP_ALL_REDUCES, 0, 0):
+        raise AssertionError(f"tp window collectives {coll}")
+    qkv = model.pretrained.blocks[0].attn.qkv.weight
+    np.save(os.path.join(work, f"window_{rank}.npy"),
+            depth.float().cpu().numpy())
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        _, coll_ms = timed_collectives(lambda: vt.forward(model, x))
+        synced_ms = 1e3 * (time.perf_counter() - t0)
+    res["window"] = {"ms": window_ms, "max_memory_allocated": peak,
+                     "collectives": coll, "launches": counts,
+                     "qkv_rows": qkv.shape[0],
+                     "heads": qkv.shape[0] // (3 * 64),
+                     "collective_ms": coll_ms, "synced_pass_ms": synced_ms}
+
+    # 3. tp=2 streams
+    res["stream"] = _mesh_streams(model, mesh, frames[:N_STREAM], tpm, work)
+    for cd in ("bf16", "int8"):
+        add(res["stream"][cd]["launches"])
+    del model, depth
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. tp=2 + sp train steps
+    cfg = vt.get_config("vitl")
+    model = train_model(cfg, 5)
+    vit = dataclasses.replace(cfg.vit, seq_shard=True)
+    model.cfg = model.cfg.replace(vit=vit)
+    model.pretrained.cfg = vit
+    tpm.shard_model(model, mesh)
+    opt = make_optimizer(1e-5, clip_norm=1.0)
+    state = init_train_state(model, opt)
+    step = make_train_step(opt, mesh=mesh)
+    rows = []
+    real_ln = norm_kernel.fused_layer_norm
+
+    def counted_ln(x, *a, **kw):
+        rows.append(x.numel() // x.shape[-1])
+        return real_ln(x, *a, **kw)
+
+    norm_kernel.fused_layer_norm = counted_ln
+    metrics, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tpm.reset_collective_counts()
+    try:
+        for batch in mesh_train_batches():
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        norm_kernel.fused_layer_norm = real_ln
+    counts = ops.launch_counts()
+    add(counts)
+    b, t, side = TRAIN_CLIP
+    local = b * t * (1 + (side // 14) ** 2) // MESH_TP
+    per_step = 2 * 24 + 4 + 3 * 4 + 2 * 24
+    _check("tp sp train", counts,
+           {**ZERO, "K2": per_step * N_MESH_TRAIN})
+    if rows.count(local) != SP_K2_LOCAL * N_MESH_TRAIN \
+            or 2 * local in rows:
+        raise AssertionError(f"tp sp train: K2 rows {sorted(set(rows))}, "
+                             f"{rows.count(local)} calls on {local} local "
+                             "tokens")
+    peak = torch.cuda.max_memory_allocated()
+    coll = tpm.collective_counts()
+    # a third step, its collectives timed (its metrics are not held)
+    t0 = time.perf_counter()
+    _, coll_ms = timed_collectives(
+        lambda: step(state, mesh_train_batches()[0]))
+    synced_ms = 1e3 * (time.perf_counter() - t0)
+    res["train"] = {"metrics": metrics, "step_ms": step_ms,
+                    "max_memory_allocated": peak, "collectives": coll,
+                    "k2_local_token_rows": local,
+                    "k2_calls_on_local_tokens": rows.count(local),
+                    "collective_ms": coll_ms, "synced_step_ms": synced_ms}
+    res["launches"] = launches
+    return res
+
+
+def mesh_train_batches():
+    """The mesh phase's two train batches: phase train's synthetic clips
+    with a LiDAR-like mask (40% valid; see phase_train)."""
+    clips = synthetic_clips(7)
+    rng = np.random.default_rng(8)
+    out = []
+    for _ in range(N_MESH_TRAIN):
+        batch = next(clips)
+        out.append(dict(batch, mask=rng.random(batch["mask"].shape) < 0.4))
+    return out
+
+
+def mesh_references(frames, work) -> dict:
+    """The one-rank runs phase mesh is held to, in this process: the
+    window, the video, the two streams and the train steps; the models
+    freed after."""
+    import vda_tpu_torch as vt
+    from vda_tpu_torch.parallel.train import (init_train_state,
+                                              make_optimizer, make_train_step)
+    from vda_tpu_torch.utils.transform import preprocess_frames
+
+    ref = {}
+    _, model = vt.load_model_params("vitl", random_init=True)
+    model.requires_grad_(False)
+    u8 = torch.from_numpy(frames[:32][None]).cuda()
+    x = preprocess_frames(u8, (SIZE, SIZE), dtype=torch.bfloat16)
+    with torch.no_grad():
+        ref["window"] = vt.forward(model, x).float().cpu()
+        ref["window_ms"] = time_ms(lambda: vt.forward(model, x), reps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        vt.forward(model, x)
+    ref["window_peak"] = torch.cuda.max_memory_allocated()
+    ref["video"], _ = vt.infer_video_depth(model, frames, 30.0,
+                                           window_batch=1)
+    for cd, n in (("bf16", N_STREAM), ("int8", N_MESH_INT8)):
+        s = vt.StreamingDepth(model, cache_dtype=cd)
+        depths, orders, i = [], [], 0
+        while i < n:
+            if cd == "bf16" and i == MESH_GROUP_AT:
+                d = s.submit_group(frames[i:i + 4])
+            else:
+                d = s.submit(frames[i])[None]
+            depths.append(d.cpu())
+            orders.extend([list(s.order)] * len(d))
+            i += len(d)
+        ref[cd] = {"depths": torch.cat(depths), "orders": orders,
+                   "cache_bytes": s.cache_bytes()}
+        del s
+    gone = weakref.ref(model)
+    del model
+    freed(gone, "the mesh phase's reference vitl")
+    model = train_model(vt.get_config("vitl"), 5)
+    opt = make_optimizer(1e-5, clip_norm=1.0)
+    state = init_train_state(model, opt)
+    step = make_train_step(opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref["train"] = []
+    for batch in mesh_train_batches():
+        state, m = step(state, batch)
+        ref["train"].append({k: float(v) for k, v in m.items()})
+    ref["train_peak"] = torch.cuda.max_memory_allocated()
+    gone = weakref.ref(model)
+    del model, state, step
+    freed(gone, "the mesh phase's reference train model")
+    return ref
+
+
+def phase_mesh(frames):
+    """The multi-GPU paths (``parallel/mesh.py``) at full vitl width on two
+    ranks sharing the one card, joined by gloo over the card's tensors
+    (NCCL refuses two ranks on one device: its error is printed).  The
+    one-rank references run first in this process; then two spawned ranks
+    run: a dp=2 fan-out of the 54-frame video (bit-identical to the
+    one-rank ``infer_video_depth(window_batch=1)``: each rank runs the
+    same forward shape), a tp=2 bf16 1x32 window (bench.py's test against
+    the one-rank window; K1 24 on 8 heads, K2 64, K5 8, K3/K4/K7 0, 56
+    all-reduces; then again with its collectives timed), a tp=2 kv stream
+    of 48 steps with a ``submit_group`` of 4 and an int8 stream of 8 (each
+    step within 2e-2 of the one-rank stream, ``order`` equal, half the
+    cache a rank) and 2 tp=2 + sp train steps of 1x8x518x518 fp32 with
+    remat on a sparse mask (loss within 1e-4, grad_norm within 1e-3
+    relative; K2 on the rank's 685 tokens a frame; a third step with its
+    collectives timed).  Returns the launches of both ranks' runs."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from vda_tpu_torch.infer.streaming import _BUF_ROWS
+
+    work = tempfile.mkdtemp(prefix="vda_mesh_")
+    refusal = nccl_refusal(work)
+    if "Duplicate GPU" not in refusal:
+        raise AssertionError(f"NCCL took two ranks on one device: "
+                             f"{refusal!r}")
+    t0 = time.perf_counter()
+    ref = mesh_references(frames, work)
+    ref_s = time.perf_counter() - t0
+    np.save(os.path.join(work, "frames.npy"), frames)
+    torch.cuda.empty_cache()
+    parent_memory = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_mesh_rank, args=(work,), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise AssertionError(f"mesh ranks still running after "
+                                 f"{MESH_TIMEOUT_S} s")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    out = {}
+    for r in ranks:
+        rank = r["rank"]
+        video = np.load(os.path.join(work, f"fanout_{rank}.npy"))
+        window = torch.from_numpy(np.load(
+            os.path.join(work, f"window_{rank}.npy")))
+        max_rel, agree = agreement(ref["window"], window)
+        fan_equal = bool(np.array_equal(video, ref["video"]))
+        fan_rel, fan_agree = agreement(torch.from_numpy(ref["video"]),
+                                       torch.from_numpy(video))
+        streams = {}
+        for cd in ("bf16", "int8"):
+            got = torch.from_numpy(np.load(os.path.join(
+                work, f"stream_{cd}_{rank}.npy")))
+            worst = max(rel(a, b)[1] for a, b in
+                        zip(ref[cd]["depths"], got, strict=True))
+            st = r["stream"][cd]
+            streams[cd] = {
+                "steps": len(got), "max_rel": worst,
+                "order_equal": st["orders"] == ref[cd]["orders"],
+                "cache_bytes": st["cache_bytes"],
+                "cache_bytes_one_rank": ref[cd]["cache_bytes"],
+                "step_ms": st["step_ms"],
+                "steady_ms": float(np.median(st["step_ms"][12:]))
+                if cd == "bf16" else None}
+        train = r["train"]
+        gaps = [{k: abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                 for k in ("total_loss", "grad_norm")}
+                for a, b in zip(ref["train"], train["metrics"], strict=True)]
+        out[rank] = {
+            "window": {**r["window"], "max_rel": max_rel, "agree_125": agree},
+            "fanout": {**r["fanout"], "bit_identical": fan_equal,
+                       "max_rel": fan_rel, "agree_125": fan_agree},
+            "stream": streams,
+            "train": {**train, "rel_gaps": gaps}}
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ZERO}
+    emit(phase="mesh", nvidia_smi=smi(), ranks=2, device="cuda:0 (both)",
+         backend="gloo",
+         backend_why="NCCL refuses two ranks on one device",
+         nccl_refusal=refusal, tp=MESH_TP,
+         parent_memory_allocated_at_spawn=parent_memory,
+         one_rank={"window_ms": ref["window_ms"],
+                   "window_max_memory_allocated": ref["window_peak"],
+                   "train_metrics": ref["train"],
+                   "train_max_memory_allocated": ref["train_peak"],
+                   "wall_s": ref_s},
+         ranks_wall_s=ranks_s, by_rank=out, launches=launches)
+    shutil.rmtree(work)
+    for rank, o in out.items():
+        if not (o["window"]["max_rel"] < 1e-2
+                and o["window"]["agree_125"] > 0.999):
+            raise AssertionError(f"rank {rank}: tp window vs one rank "
+                                 f"{o['window']}")
+        if not o["fanout"]["bit_identical"]:
+            raise AssertionError(f"rank {rank}: the dp fan-out differs from "
+                                 f"one rank's video: {o['fanout']}")
+        for cd, s in o["stream"].items():
+            want_cache = cache_bytes_want(_BUF_ROWS) // MESH_TP
+            if cd == "bf16" and s["cache_bytes"] != want_cache:
+                raise AssertionError(f"rank {rank}: tp cache bytes "
+                                     f"{s['cache_bytes']} != {want_cache}")
+            if not (s["max_rel"] < 2e-2 and s["order_equal"]):
+                raise AssertionError(f"rank {rank}: tp stream {cd} {s}")
+        for g in o["train"]["rel_gaps"]:
+            if not (g["total_loss"] < 1e-4 and g["grad_norm"] < 1e-3):
+                raise AssertionError(f"rank {rank}: tp sp train vs one "
+                                     f"rank {g}")
+    return launches
+
+
+def main(argv=None) -> int:
+    """Every phase; ``--only mesh`` (a development run) the environment,
+    the build and phase mesh alone, without the last lines."""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only", "mesh"]):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -2927,6 +3452,10 @@ def main() -> int:
     torch.cuda.set_device(0)
     phase_env()
     phase_build()
+    if argv:
+        phase_mesh((np.random.default_rng(0).random((N_FRAMES, SIZE, SIZE, 3))
+                    * 255).astype(np.uint8))
+        return 0
 
     def fp32_vitl():  # the smoke run's vitl weights, seed 0, in fp32
         return vt.init_random(vt.get_config("vitl"),
@@ -2961,8 +3490,13 @@ def main() -> int:
     int8 = phase_int8(model)
     probes = phase_probes()
     phase_host_sync(cast, frames)
+    # phase mesh's ranks share the card: this process's models go first
+    del cast, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(frames)
     paths = (window, stream, direct, vits, vitg, rope, batched, fused,
-             fused_stream, cross, nested, train, apps, int8, probes)
+             fused_stream, cross, nested, train, apps, int8, probes, mesh)
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     idle = [k for k, n in launches.items() if not n]
     if idle:

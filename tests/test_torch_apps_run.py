@@ -113,9 +113,38 @@ def test_run_cli_random_init_metric(test_video, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--tp", "2"]], ids=["tp"])
 def test_run_cli_refuses_unported(flags, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+    """``--tp 2`` in a world of one process: the degree does not divide
+    the world size (JAX's CLI exits alike on its devices)."""
+    with pytest.raises(SystemExit, match="does not divide the world size 1"):
         trun.main(["--input_video", str(tmp_path / "x.mp4"), "--device",
                    "cpu", "--random-init"] + flags)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def tp2_ranks(test_video, tmp_path_factory):
+    """The two ranks of ``test_run_cli_tp2_matches_direct_call``, started
+    with the module so that they run beside its other tests."""
+    from tests import torch_ranks
+
+    tmp = tmp_path_factory.mktemp("tp2")
+    flags = ["--input_video", test_video, "--output_dir", str(tmp / "out"),
+             "--encoder", "tiny", "--random-init", "--device", "cpu",
+             "--input_size", "56", "--fp32", "--tp", "2"]
+    yield from torch_ranks.started_with_module(
+        "body_cli_run", 2, tmp, torchrun=True, flags=flags)
+
+
+def test_run_cli_tp2_matches_direct_call(tp2_ranks):
+    """``--tp 2`` on two gloo ranks under a torchrun environment: each
+    rank's depths bit-identical to ``infer_video_depth(mesh=)`` on the
+    model and frames the CLI loads, and rank 0 alone writes."""
+    ranks = tp2_ranks.results()
+    out = os.path.join(tp2_ranks.tmp, "out")
+    for r in ranks:
+        assert r["world"] == 2
+        assert r["cli"].shape == (40, 70, 90)
+        np.testing.assert_array_equal(r["cli"], r["direct"])
+    assert sorted(os.listdir(out)) == ["clip_src.mp4", "clip_vis.mp4"]
 
 
 def test_run_cli_window_batch(loaders, test_video, tmp_path):

@@ -4,6 +4,8 @@ the port's ``submit`` and JAX's ``submit_group``, on shared tiny weights
 (the port's seeded model's state dict loaded strictly into JAX params by
 ``convert_state_dict``)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -101,9 +103,36 @@ def test_streaming_cli_random_init_cpu(test_video, tmp_path):
 
 
 def test_streaming_cli_refuses_tp(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+    """``--tp 2`` in a world of one process."""
+    with pytest.raises(SystemExit, match="does not divide the world size 1"):
         tstream.main(["--input_video", str(tmp_path / "x.mp4"), "--tp", "2",
                       "--device", "cpu", "--random-init"])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def tp2_ranks(test_video, tmp_path_factory):
+    """The two ranks of ``test_streaming_cli_tp2_matches_direct_stream``,
+    started with the module so that they run beside its other tests."""
+    from tests import torch_ranks
+
+    tmp = tmp_path_factory.mktemp("tp2")
+    flags = ["--input_video", test_video, "--output_dir", str(tmp / "out"),
+             "--encoder", "tiny", "--random-init", "--device", "cpu",
+             "--input_size", "56", "--fp32", "--max_len", "6", "--tp", "2"]
+    yield from torch_ranks.started_with_module(
+        "body_cli_stream", 2, tmp, torchrun=True, flags=flags)
+
+
+def test_streaming_cli_tp2_matches_direct_stream(tp2_ranks):
+    """``--tp 2`` on two gloo ranks under a torchrun environment: the
+    depths of a ``StreamingDepth(mesh=)`` loop on the CLI's model and
+    frames, bit for bit, on both ranks."""
+    ranks = tp2_ranks.results()
+    for r in ranks:
+        assert r["cli"].shape == (6, 70, 90)
+        np.testing.assert_array_equal(r["cli"], r["direct"])
+    out = os.path.join(tp2_ranks.tmp, "out")
+    assert os.listdir(out) == ["clip_vis.mp4"]
 
 
 def _same_cache(a, b) -> bool:

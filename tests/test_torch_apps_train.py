@@ -181,8 +181,32 @@ def test_train_cli_from_pth_with_options(tmp_path):
     assert resumed.step == 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def tp2_ranks(tmp_path_factory):
+    """The two ranks of ``test_train_cli_tp2_runs_and_resumes``, started
+    with the module so that they run beside its other tests."""
+    from tests import torch_ranks
+
+    tmp = tmp_path_factory.mktemp("tp2")
+    flags = BASE + ["--tp", "2", "--prefetch", "0", "--ckpt-dir",
+                    str(tmp / "ckpt")]
+    yield from torch_ranks.started_with_module(
+        "body_cli_train", 2, tmp, torchrun=True, flags=flags)
+
+
+def test_train_cli_tp2_runs_and_resumes(tp2_ranks):
+    """``--tp 2`` on two gloo ranks under a torchrun environment: two
+    synthetic steps, a checkpoint (written whole by rank 0) and a run
+    resumed from it to step 3."""
+    ranks = tp2_ranks.results()
+    assert [r["steps"] for r in ranks] == [(2, 3), (2, 3)]
+    ckpt = os.path.join(tp2_ranks.tmp, "ckpt")
+    assert sorted(os.listdir(ckpt)) == [
+        "step_00000002.pt", "step_00000003.pt"]
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--tp", "2"], "ROADMAP.md"),
+    (["--tp", "2"], "does not divide the world size 1"),
     (["--size", "50"], None),
 ], ids=["tp", "size"])
 def test_train_cli_refusals(flags, match):

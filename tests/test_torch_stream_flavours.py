@@ -265,7 +265,7 @@ DIRECT_KNOB = [
     ({"VDA_STREAM_DIRECT": "1"}, {"attn_impl": "xla"},
      ("bf16", False, False)),
     ({"VDA_STREAM_DIRECT": "1", "VDA_STREAM_KV8": "1"}, {},
-     ("int8", True, False)),
+     ("bf16", True, True)),
 ]
 
 
@@ -273,14 +273,16 @@ DIRECT_KNOB = [
 def test_direct_knob_resolution(setup, monkeypatch, env, kw, want):
     """``VDA_STREAM_DIRECT=1`` turns on ``ctx_kernel`` where it applies (its
     stream reads in place where JAX's direct flavour does) and yields
-    elsewhere, as JAX's knob does; an int8 cache gathers (K6 reads only
-    rows in the working dtype in place)."""
+    elsewhere, as JAX's knob does; it makes the cache bf16 unless the
+    caller names a dtype, as JAX's experimental flavours do, so with
+    ``VDA_STREAM_KV8=1`` too the stream still reads in place."""
     params, jcfg, model, _ = setup
     _set(monkeypatch, env)
     j = jstream.StreamingDepth(params, jcfg, input_size=56, fp32=True, **kw)
     assert type(j) is jexp.ExperimentalStreamingDepth
     t = vt.StreamingDepth(model, input_size=56, fp32=True, **kw)
     assert (t.cache_dtype, t.ctx_kernel, t._direct) == want
+    assert t.cache_dtype == j.cache_dtype
 
 
 # refused by both packages: env, keywords

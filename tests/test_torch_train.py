@@ -409,9 +409,11 @@ def test_trainer_metrics_jsonl_and_refusals(setup, tmp_path):
         assert all(np.isfinite(v) for v in r.values())
     assert any(not torch.equal(a, p) for a, p in zip(before,
                                                      model.parameters()))
-    with pytest.raises(NotImplementedError):
+    # tensor parallelism needs a world of tp ranks (tests/test_torch_parallel
+    # runs one); sp needs tp > 1, as in JAX
+    with pytest.raises(ValueError, match="not divisible by tp=2"):
         vt.train(model, _clips(), 1, tp=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="sp=True requires tp > 1"):
         vt.train(model, _clips(), 1, sp=True)
 
 

@@ -7,8 +7,11 @@ RoPE motion modules (``pe``): offline windowed inference
 and ``window_batch``), causal streaming (``StreamingDepth``; with
 ``ctx_kernel`` K6 reads the cache in place once the warmup is over), the
 JAX package's ``VDA_*`` knobs that pick behaviour (``utils/knobs.py``), the
-generic attention library (``models/cross_attention.py``), and training on
-one device: ``video_depth_loss`` (``loss/``), ``make_optimizer`` /
+generic attention library (``models/cross_attention.py``), the multi-GPU
+paths of ``parallel/mesh.py`` on torch.distributed (windows fanned out over
+a data axis, head-aligned tensor parallelism of the encoder and the
+temporal attention for windows, streams and training, sequence
+parallelism), and training: ``video_depth_loss`` (``loss/``), ``make_optimizer`` /
 ``init_train_state`` / ``make_train_step`` (``parallel/train.py``), the
 ``train`` loop with metrics, prefetch and checkpoint resume
 (``parallel/trainer.py``, ``utils/data.py``, ``utils/checkpoint.py``,

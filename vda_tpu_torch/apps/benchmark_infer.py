@@ -50,7 +50,6 @@ def main(argv=None):
 
     args.metric = False
     args.fp32 = True
-    run.refuse_unported(args)
     cfg, model = run.load_model(args)
 
     for dataset in args.datasets:

@@ -12,8 +12,16 @@ params (``--checkpoint x.npz``) through ``utils/loader.load_model_params``,
 or ``--random-init`` (seeded weights, for pipeline testing).  The model
 runs on the card unless ``--device cpu`` asks for the CPU.
 ``--window-batch N`` runs N windows as the batch of one forward on that
-device.  ``--tp`` above 1 is multi-GPU work (ROADMAP.md Queue 1, item 9)
-and is refused.
+device.
+
+Under ``torchrun --standalone --nproc-per-node N`` the ranks form a
+('data', 'model') mesh (``parallel/mesh.make_mesh``): ``--tp`` ranks hold
+one model, sharded head-aligned, and the window batch fans out over the
+rest (JAX's rule: with ``--tp 1`` the data axis takes at most
+``--window-batch`` ranks, so the batch keeps its size; ``--tp`` must
+divide the world size).  Each rank runs on ``cuda:{LOCAL_RANK}`` (ranks
+sharing a card join by gloo, others by NCCL); rank 0 alone writes the
+outputs.  With one process and ``--tp 1`` nothing of this runs.
 """
 
 import argparse
@@ -61,18 +69,53 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--window-batch", type=int, default=1,
                         help="independent windows batched into one forward")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree: multi-GPU work, only "
-                             "1 is served")
+                        help="tensor-parallel degree under torchrun: ranks "
+                             "sharing one model (must divide the world "
+                             "size)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="device the model runs on (cuda, or cpu)")
     return parser
 
 
-def refuse_unported(args) -> None:
-    """SystemExit for what the port does not serve yet."""
-    if getattr(args, "tp", 1) > 1:
-        raise SystemExit("--tp above 1 is multi-GPU work, not ported "
-                         "(ROADMAP.md Queue 1, item 9)")
+def check_tp(args) -> int:
+    """The world size; SystemExit where ``--tp`` does not divide it."""
+    from vda_tpu_torch.parallel.mesh import world_size
+
+    world = world_size()
+    tp = getattr(args, "tp", 1)
+    if tp < 1 or world % tp:
+        raise SystemExit(f"--tp {tp} does not divide the world size "
+                         f"{world} (launch with torchrun --nproc-per-node "
+                         f"a multiple of {tp})")
+    return world
+
+
+def rank_device(args) -> str:
+    """The rank's device: ``--device cuda`` is ``cuda:{LOCAL_RANK}`` (of
+    the cards there are), any other ``--device`` as given."""
+    from vda_tpu_torch.parallel.mesh import rank_device as rd
+
+    device = getattr(args, "device", "cuda")
+    return str(rd(None if device == "cuda" else device))
+
+
+def cli_mesh(args, n_devices=None):
+    """The mesh of a CLI run (``make_mesh(n_devices, tp=--tp)`` on the
+    rank's device), or None for one process at ``--tp 1``.  Ranks outside
+    the first ``n_devices`` get None as well."""
+    from vda_tpu_torch.parallel.mesh import make_mesh
+
+    world = check_tp(args)
+    if world == 1:
+        return None
+    return make_mesh(n_devices, tp=args.tp, device=rank_device(args))
+
+
+def is_writer() -> bool:
+    """Whether this rank writes outputs: rank 0, or the one process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _ensure_example_video(path: str) -> None:
@@ -108,29 +151,43 @@ def load_model(args):
         checkpoint=args.checkpoint,
         random_init=args.random_init,
         cast_bf16=not getattr(args, "fp32", False),
-        device=getattr(args, "device", "cuda"))
+        device=rank_device(args))
 
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    refuse_unported(args)
+    world = check_tp(args)
+    # JAX's rule: --tp fills the data axis with the whole world; plain
+    # --window-batch N fans out over at most N ranks, so the batch keeps
+    # its size (the other ranks have nothing to do)
+    n = world if args.tp > 1 else min(world, args.window_batch)
+    mesh = cli_mesh(args, n)
 
     from vda_tpu_torch.infer.windowed import infer_video_depth
     from vda_tpu_torch.utils import io
 
-    if args.input_video == DEFAULT_VIDEO:
+    if args.input_video == DEFAULT_VIDEO and is_writer():
         _ensure_example_video(args.input_video)
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+        if mesh is None:
+            return None  # a rank outside the mesh
     cfg, model = load_model(args)
     frames, target_fps = io.read_video_frames(
         args.input_video, args.max_len, args.target_fps, args.max_res)
 
     def progress(i, n):
-        print(f"\rwindow {i}/{n}", end="", flush=True)
+        if is_writer():
+            print(f"\rwindow {i}/{n}", end="", flush=True)
 
     depths, fps = infer_video_depth(
         model, frames, target_fps, input_size=args.input_size,
         fp32=args.fp32, attn_impl=args.attn_impl, progress=progress,
-        window_batch=args.window_batch)
+        window_batch=args.window_batch, mesh=mesh)
+    if not is_writer():
+        return depths
     print()
 
     stem = os.path.splitext(os.path.basename(args.input_video))[0]

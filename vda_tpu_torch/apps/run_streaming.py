@@ -10,8 +10,11 @@ depth visualization video and prints the wall time.  Whether the stream
 runs K6 (``VDA_STREAM_CTX_KERNEL`` / ``VDA_STREAM_DIRECT``) and, with
 ``--cache-dtype auto``, its cache dtype come from the ``VDA_STREAM_*``
 knobs, as JAX's CLI resolves them (``utils/knobs.py``).
-Runs on the card unless ``--device cpu``; ``--tp`` above 1 is multi-GPU
-work (ROADMAP.md Queue 1, item 9) and is refused.
+Runs on the card unless ``--device cpu``.  Under ``torchrun
+--nproc-per-node N``, ``--tp`` k (k must divide N) runs the stream
+tensor-parallel over the first k ranks (``StreamingDepth(mesh=)``; a
+stream has no batch to fan out, so the others have nothing to do), each
+on ``cuda:{LOCAL_RANK}``; rank 0 alone writes the video.
 """
 
 import argparse
@@ -53,8 +56,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "auto reads VDA_STREAM_CACHE_DTYPE / "
                              "VDA_STREAM_KV8 (bf16 when unset)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree: multi-GPU work, only "
-                             "1 is served")
+                        help="tensor-parallel degree under torchrun: the "
+                             "stream's model and kv cache sharded over the "
+                             "first tp ranks (must divide the world size)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="device the model runs on (cuda, or cpu)")
     return parser
@@ -106,12 +110,16 @@ def main(argv=None):
     from vda_tpu_torch.apps import run
     from vda_tpu_torch.utils import io
 
-    run.refuse_unported(args)
+    world = run.check_tp(args)
+    mesh = run.cli_mesh(args, args.tp)
+    if world > 1 and mesh is None:
+        return []  # a rank outside the stream's tp ranks
     cfg, model = run.load_model(args)
     stream = StreamingDepth(model, input_size=args.input_size,
                             fp32=args.fp32, attn_impl=args.attn_impl,
                             cache_dtype=(None if args.cache_dtype == "auto"
-                                         else args.cache_dtype))
+                                         else args.cache_dtype),
+                            mesh=mesh)
     fps, video = open_video(args.input_video, args.target_fps, args.max_res)
 
     # Pipelined loop: submit frame n+1 (asynchronous) BEFORE fetching frame
@@ -147,6 +155,8 @@ def main(argv=None):
         flush(stream.submit(f))
     flush(None)
     wall = time.time() - t0
+    if not run.is_writer():
+        return depths
     print(f"{len(depths)} frames in {wall:.2f}s "
           f"({len(depths) / max(wall, 1e-9):.2f} fps)")
 

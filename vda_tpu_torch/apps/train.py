@@ -13,9 +13,13 @@ pre-normalized (guarded in npz_data_iter).  The model starts from seeded
 random weights (``init_random``, a ``torch.Generator`` seeded 0), a
 reference ``.pth`` or the JAX package's ``.npz`` params (in fp32, as JAX's
 CLI loads them); ``--export-pth`` saves the trained state dict, which has
-the reference's key layout.  Runs on the card unless ``--device cpu``;
-``--tp`` above 1 is multi-GPU work (ROADMAP.md Queue 1, item 9) and is
-refused.
+the reference's key layout.  Runs on the card unless ``--device cpu``.
+Under ``torchrun --nproc-per-node N`` the ranks train one model
+(``parallel/trainer.train``): ``--tp`` k (dividing N) ranks hold it sharded,
+``--sp`` adds sequence parallelism, the batch is split over the N / k data
+ranks (``--batch`` must divide by N / k), each rank on
+``cuda:{LOCAL_RANK}``; rank 0 alone writes metrics, checkpoints and the
+export.
 """
 
 import argparse
@@ -161,8 +165,11 @@ def main(argv=None):
     parser.add_argument("--size", type=int, default=266)
     parser.add_argument("--lr", type=float, default=1e-5)
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree: multi-GPU work, only "
-                             "1 is served")
+                        help="tensor-parallel degree under torchrun (must "
+                             "divide the world size)")
+    parser.add_argument("--sp", action="store_true",
+                        help="sequence parallelism of the encoder's norm "
+                             "regions (needs --tp > 1)")
     parser.add_argument("--ckpt-dir", default=None)
     parser.add_argument("--ckpt-every", type=int, default=500)
     parser.add_argument("--manifest", default=None,
@@ -196,7 +203,7 @@ def main(argv=None):
 
     import torch
 
-    from vda_tpu_torch.apps.run import refuse_unported
+    from vda_tpu_torch.apps.run import check_tp, is_writer, rank_device
     from vda_tpu_torch.config import get_config
     from vda_tpu_torch.models.vda import VideoDepthAnything
     from vda_tpu_torch.parallel.trainer import train
@@ -206,7 +213,13 @@ def main(argv=None):
         load_torch_checkpoint,
     )
 
-    refuse_unported(args)
+    world = check_tp(args)
+    if args.sp and args.tp <= 1:
+        parser.error("--sp needs --tp > 1")
+    if args.batch % (world // args.tp):
+        parser.error(f"--batch {args.batch} does not split over "
+                     f"{world // args.tp} data ranks")
+    device = rank_device(args)
     cfg = get_config(args.encoder)
     patch = cfg.vit.patch_size
     # --size only reaches the model in manifest/synthetic modes (npz shards
@@ -226,13 +239,12 @@ def main(argv=None):
             f"--augment-size {args.augment_size} > --size {args.size}: "
             "decode at least as large as the crop (raise --size)")
     if args.checkpoint is None:
-        model = init_random(cfg, torch.Generator(device=args.device)
-                            .manual_seed(0), device=args.device)
+        model = init_random(cfg, torch.Generator(device=device)
+                            .manual_seed(0), device=device)
     else:
         load = load_npz_checkpoint if args.checkpoint.endswith(".npz") \
             else load_torch_checkpoint
-        model = load(args.checkpoint,
-                     VideoDepthAnything(cfg, device=args.device))
+        model = load(args.checkpoint, VideoDepthAnything(cfg, device=device))
 
     if args.manifest:
         data = manifest_clip_iter(args.manifest, args.batch, args.frames,
@@ -245,7 +257,7 @@ def main(argv=None):
 
     state = train(model, data, num_steps=args.steps,
                   ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                  learning_rate=args.lr,
+                  learning_rate=args.lr, tp=args.tp, sp=args.sp,
                   schedule=args.schedule, warmup_steps=args.warmup_steps,
                   clip_norm=args.clip_norm,
                   augment_hw=((args.augment_size, args.augment_size)
@@ -253,9 +265,15 @@ def main(argv=None):
                   prefetch=args.prefetch, accum=args.accum,
                   metrics_path=args.metrics)
     if args.export_pth:
-        torch.save(state.model.state_dict(), args.export_pth)
-        print(f"exported reference-format weights to {args.export_pth}")
-    print(f"done at step {int(state.step)}")
+        # the gather is collective: every rank takes part, rank 0 writes
+        from vda_tpu_torch.parallel.mesh import full_state_dict
+
+        sd = full_state_dict(state.model)
+        if is_writer():
+            torch.save(sd, args.export_pth)
+            print(f"exported reference-format weights to {args.export_pth}")
+    if is_writer():
+        print(f"done at step {int(state.step)}")
     return state
 
 

@@ -32,8 +32,17 @@ written.  ``cache_dtype`` and ``ctx_kernel`` left at None resolve from
 ``VDA_STREAM_CTX_KERNEL`` / ``VDA_STREAM_DIRECT`` (``utils/knobs.py``).
 JAX's ring and sliding cache layouts (``VDA_STREAM_RING``,
 ``VDA_STREAM_SLIDE``) are refused: on the H100 they gave the default
-stream's depths in more device time a step (PERF.md, Findings).  The
-tensor-parallel mesh is multi-GPU work.
+stream's depths in more device time a step (PERF.md, Findings).
+
+``mesh`` with a model axis above 1 runs the stream tensor-parallel (JAX's
+``StreamingDepth(mesh=)``): the model is sharded (``parallel/mesh``), the
+kv cache's buffers hold this rank's channels (whole temporal heads; an h
+cache stays whole), the bookkeeping is the same on every rank, and an int8
+cache takes each row's scale from the largest magnitude over all ranks'
+channels (an all-reduce MAX), as one device takes it over the whole row.
+K6 is JAX's experimental flavour and single-chip: under a mesh the knobs
+yield and an explicit ``ctx_kernel=True`` or ``VDA_STREAM_DIRECT=1``
+raise.
 
 ``submit`` returns without waiting for the device, as JAX's does: the frame
 and the context row ids reach the card by non-blocking copies from pinned
@@ -62,6 +71,7 @@ from vda_tpu_torch.models.vda import (
 )
 from vda_tpu_torch.ops import stream_kernel as sk
 from vda_tpu_torch.ops.resize import resize_bilinear
+from vda_tpu_torch.parallel import mesh as tpm
 from vda_tpu_torch.utils import knobs
 from vda_tpu_torch.utils.transform import (
     compute_resize_hw,
@@ -83,10 +93,13 @@ _DEFAULT_CACHE_DTYPE = "bf16"
 
 def _resolve_cache_dtype(cache_dtype: Optional[str]) -> str:
     """JAX's ``_resolve_cache_dtype``: an explicit ``cache_dtype`` wins;
-    None reads ``VDA_STREAM_CACHE_DTYPE``, else int8 for
-    ``VDA_STREAM_KV8=1``, else ``_DEFAULT_CACHE_DTYPE``."""
+    None is bf16 under ``VDA_STREAM_DIRECT=1`` (JAX's experimental
+    flavours take only bf16), else reads ``VDA_STREAM_CACHE_DTYPE``, else
+    int8 for ``VDA_STREAM_KV8=1``, else ``_DEFAULT_CACHE_DTYPE``."""
     if cache_dtype is not None:
         return cache_dtype
+    if knobs.flag("VDA_STREAM_DIRECT"):
+        return "bf16"
     env = knobs.value("VDA_STREAM_CACHE_DTYPE")
     if env:
         return env
@@ -259,7 +272,7 @@ def _stream_step_group(model, frames_u8, buffers, ctx_rows, held_at, net_hw,
         stage_out, rows = dpt_head_temporal_stage(
             model.head, feats_j, patch_hw, 1, cfg,
             cached_hidden_state_list=ctx, cache_kind=cache_kind,
-            kernels=kernels, ln_kernel=ln_kernel)
+            kernels=kernels, ln_kernel=ln_kernel, mesh=tpm.model_mesh(model))
         stage_outs.append(stage_out)
         held.append(_leaves(rows, cache_kind))
     batched = tuple(torch.cat([s[i] for s in stage_outs]) for i in range(3))
@@ -333,14 +346,20 @@ def _write_step(buffers, new_rows, write_pos: int) -> None:
 
 
 @torch.no_grad()
-def _write_step_q8(buffers, scales, new_rows, write_pos: int) -> None:
+def _write_step_q8(buffers, scales, new_rows, write_pos: int,
+                   mesh=None) -> None:
     """int8 ``_write_step``: each new (BHW, 1, C) row is quantised with one
     fp32 scale (its largest magnitude over 127, at least 1e-8 / 127),
     rounded half to even and clipped to [-127, 127]; the scale goes to
-    ``scales[i][write_pos]``.  In place."""
-    for buf, sc, row in zip(buffers, scales, new_rows):
-        r = row[:, 0].float()
-        s = r.abs().max().clamp_min(1e-8) / 127.0
+    ``scales[i][write_pos]``.  In place.  ``mesh``: the rows are this
+    rank's channels, and the largest magnitude is taken over every rank's
+    (one all-reduce MAX for all the rows)."""
+    rows = [row[:, 0].float() for row in new_rows]
+    amax = torch.stack([r.abs().max() for r in rows])
+    if mesh is not None:
+        tpm.all_reduce_(amax, mesh.model_group, op="max")
+    for buf, sc, r, m in zip(buffers, scales, rows, amax):
+        s = m.clamp_min(1e-8) / 127.0
         buf[:, write_pos] = torch.round(r / s).clamp_(-127, 127).to(torch.int8)
         sc[write_pos] = s
 
@@ -364,13 +383,25 @@ class StreamingDepth:
     kernels.  (K10's gate refuses every batch-1 resize, so the stream
     offers no ``resize_kernel``.)  fp32: run the network in fp32 instead of
     bf16.  attn_impl: "auto" (the kernels), "xla" (JAX's training set: K2
-    only) or "plain" (plain PyTorch everywhere)."""
+    only) or "plain" (plain PyTorch everywhere).  mesh: a
+    ``parallel/mesh.Mesh`` whose model axis is above 1 runs the stream
+    tensor-parallel (every rank of the model group submits the same
+    frames and gets the same depths); a mesh with one model rank changes
+    nothing, as in JAX (a stream has no batch to fan out).  Without one,
+    the mesh the model was sharded over (``parallel/mesh.use_mesh``); one
+    other than that raises."""
 
     def __init__(self, model: VideoDepthAnything, input_size: int = 518,
                  fp32: bool = False, attn_impl: str = "auto",
                  cache_kind: str = "kv", cache_dtype: Optional[str] = None,
                  ctx_kernel: Optional[bool] = None,
-                 fuse_proj: Optional[bool] = None):
+                 fuse_proj: Optional[bool] = None, mesh=None):
+        if mesh is None:
+            mesh = tpm.model_mesh(model)
+        self.mesh = mesh if tpm.tp_on(mesh) else None
+        if self.mesh is not None and knobs.flag("VDA_STREAM_DIRECT"):
+            raise ValueError("experimental streaming flavors do not support "
+                             "tensor parallelism")
         for name in ("VDA_STREAM_RING", "VDA_STREAM_SLIDE"):
             if knobs.flag(name):
                 raise ValueError(
@@ -386,7 +417,8 @@ class StreamingDepth:
         if cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"cache_dtype must be bf16 or int8, "
                              f"got {cache_dtype!r}")
-        unsupported = cache_kind != "kv" or attn_impl != "auto"
+        unsupported = (cache_kind != "kv" or attn_impl != "auto"
+                       or self.mesh is not None)
         if ctx_kernel is None:
             # the knobs yield where the kernel does not apply; only an
             # explicit True raises (JAX's rule)
@@ -394,8 +426,10 @@ class StreamingDepth:
                           or knobs.flag("VDA_STREAM_DIRECT")) \
                 and not unsupported
         if ctx_kernel and unsupported:
-            raise ValueError("ctx_kernel requires cache_kind='kv' and the "
-                             "kernels (attn_impl='auto')")
+            raise ValueError("ctx_kernel requires cache_kind='kv', the "
+                             "kernels (attn_impl='auto') and no tensor-"
+                             "parallel mesh")
+        tpm.use_mesh(model, mesh)  # shards it, or refuses another mesh
         self.model = model
         self.device = next(model.parameters()).device
         self.input_size = input_size
@@ -566,9 +600,11 @@ class StreamingDepth:
         if self.scales is None:
             _write_step(self.buffers, rows, write_pos)
         else:
-            _write_step_q8(self.buffers, self.scales, rows, write_pos)
+            _write_step_q8(self.buffers, self.scales, rows, write_pos,
+                           self.mesh)
 
     def cache_bytes(self) -> int:
-        """Device bytes the cache buffers (and scales) hold."""
+        """Device bytes the cache buffers (and scales) hold (this rank's
+        under a mesh)."""
         bufs = (self.buffers or []) + (self.scales or [])
         return sum(b.numel() * b.element_size() for b in bufs)

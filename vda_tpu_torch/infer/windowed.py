@@ -7,8 +7,9 @@ the device, the final resize to the frame size runs in fp32, depths cross to
 the host in float16 (fp32 with ``fp32=True``), and the host stitches the
 windows (``stitching.stitch_windows``, copied).  ``window_batch`` runs that
 many windows as the batch of one forward on the device, each window its own
-sequence of frames; the JAX ``mesh``, which shards that batch over chips,
-is the multi-GPU work.
+sequence of frames.  ``mesh`` (``parallel/mesh.make_mesh``) fans that batch
+out over the data axis and runs each rank's windows tensor-parallel over
+the model axis; every rank returns the whole stitched video.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from vda_tpu_torch.config import INFER_LEN, KEYFRAMES, OVERLAP
 from vda_tpu_torch.infer.stitching import stitch_windows
 from vda_tpu_torch.models.vda import VideoDepthAnything, forward
 from vda_tpu_torch.ops.resize import resize_bilinear
+from vda_tpu_torch.parallel import mesh as tpm
 from vda_tpu_torch.utils import knobs
 from vda_tpu_torch.utils.transform import (
     compute_resize_hw,
@@ -89,6 +91,7 @@ def infer_video_depth(
     fuse_proj: Optional[bool] = None,
     resize_kernel: Optional[bool] = None,
     window_batch: int = 1,
+    mesh=None,
 ):
     """frames: (N, H, W, 3) uint8 RGB.  Returns (depths (N, H, W) fp32, fps).
 
@@ -102,8 +105,19 @@ def infer_video_depth(
     ``window_batch``: windows a forward takes, as its batch (JAX's
     ``window_batch`` on one device); the last batch is filled up by
     repeating its last window, whose depths are dropped, so every forward
-    has one shape."""
+    has one shape.
+
+    ``mesh`` (a ``parallel/mesh.Mesh``; every rank calls this with the same
+    frames): the window batch is rounded up to fill the data axis (JAX's
+    ``wb = ceil(wb / dp) * dp``), data rank r runs windows r·wb/dp ..
+    (r+1)·wb/dp of each batch, its model sharded over the model axis
+    (``shard_model``, done here if not yet) where that axis is above 1,
+    and the depths (float16 unless ``fp32``) are gathered over the data
+    axis, so every rank stitches the whole video; ``progress`` counts the
+    windows fetched.  Without a mesh, the one the model was sharded over
+    (``parallel/mesh.use_mesh``); one other than that raises."""
     cfg = model.cfg
+    mesh = tpm.use_mesh(model, mesh)
     device = next(model.parameters()).device
     fuse_proj = knobs.fuse_proj(fuse_proj, attn_impl)
     resize_kernel = knobs.resize_kernel(resize_kernel, attn_impl)
@@ -115,6 +129,9 @@ def infer_video_depth(
     idx = window_source_indices(n_frames)
     n_windows = idx.shape[0]
     wb = max(1, min(window_batch, n_windows))
+    dp, rank = (1, 0) if mesh is None else (mesh.dp, mesh.data_rank)
+    wb = -(-wb // dp) * dp  # the window batch fills the data axis
+    per = wb // dp
     host_depths = []
     for start in range(0, n_windows, wb):
         batch_idx = idx[start:start + wb]
@@ -122,10 +139,13 @@ def infer_video_depth(
         if n_valid < wb:
             batch_idx = np.concatenate(
                 [batch_idx, batch_idx[-1:].repeat(wb - n_valid, 0)])
-        u8 = torch.from_numpy(frames[batch_idx]).to(device)
+        mine = batch_idx[rank * per:(rank + 1) * per]
+        u8 = torch.from_numpy(frames[mine]).to(device)
         d = _window_step(model, u8, net_hw, (frame_h, frame_w), dtype,
                          attn_impl, micro_batch_size, fuse_proj,
                          resize_kernel)
+        if dp > 1:
+            d = tpm.all_gather(d, mesh.data_group, 0)
         host_depths.extend(d[:n_valid].flatten(0, 1).cpu().float().numpy())
         if progress is not None:
             progress(start + n_valid, n_windows)

@@ -181,11 +181,27 @@ def temporal_gradient_matching_loss(prediction, target, mask,
 
 def video_depth_loss(prediction, target, mask, alpha: float = 0.5,
                      scales: int = 4, trim: float = 0.0,
-                     stable_scale: float = 10.0):
+                     stable_scale: float = 10.0, group=None):
     """VideoDepthLoss (reference loss.py:236-259).
 
     prediction, target: (B, T, H, W); mask: (B, T, H, W) bool or {0, 1}.
-    Returns a dict of spatial_loss, stable_loss and total_loss."""
+    Returns a dict of spatial_loss, stable_loss and total_loss.
+
+    ``group``: a data-parallel process group whose ranks hold slices of
+    one batch (in rank order).  The loss is then the one of the whole
+    batch, as JAX computes it over the global batch: the trimmed MAE keeps
+    the smallest share of the masked residuals of every rank and the
+    masked sums run over the whole batch.  The slices are all-gathered
+    (8x518x518 fp32 is 8.6 MB a rank) and every rank computes the same
+    loss; the prediction's gradient reaches this rank's entries only, so
+    the ranks' parameter gradients sum to the whole batch's."""
+    if group is not None:
+        from vda_tpu_torch.parallel import mesh as tpm
+
+        prediction = tpm.gather_replicated(prediction, group, 0)
+        target = tpm.all_gather(target, group, 0)
+        mask = tpm.all_gather(mask.to(torch.uint8), group, 0).bool() \
+            if mask.dtype == torch.bool else tpm.all_gather(mask, group, 0)
     maskf = mask.to(prediction.dtype)
     b, t, h, w = prediction.shape
     spatial = trimmed_procrustes_loss(

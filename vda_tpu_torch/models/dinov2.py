@@ -17,6 +17,17 @@ LayerNorms through K2; JAX's training set (``attn_impl="xla"``) is
 ``kernels=False, ln_kernel=True``.  On CPU tensors every wrapper runs its
 plain twin.
 
+Tensor parallelism (``mesh``, a ``parallel/mesh.Mesh`` whose model axis is
+above 1, over a model ``parallel/mesh.shard_model`` has split): a rank's
+qkv holds whole heads, so K1 runs on its ``heads / tp`` heads of the local
+fused product; ``proj`` and ``fc2`` / ``w3`` are row-parallel, each one
+all-reduce with the bias added once after it, then LayerScale and the
+residual.  K7 stays off (its epilogue adds the residual before the sum is
+complete).  ``cfg.seq_shard`` (sequence parallelism) keeps the residual
+stream token-sharded between the row-parallel exits, so K2 runs on the
+local tokens; tokens are all-gathered entering attention and the MLP and
+reduce-scattered leaving them (JAX ``block_apply``).
+
 Training: ``prepare_tokens(masks=)`` (iBOT mask token), stochastic depth in
 ``block_apply`` / ``encode`` (``drop_path_rate`` with a ``torch.Generator``,
 DINOv2's linear per-block schedule), ``encode(remat=True)`` (each block
@@ -48,6 +59,7 @@ from vda_tpu_torch.ops.layers import (
     linear,
 )
 from vda_tpu_torch.ops.resize import resize_bicubic
+from vda_tpu_torch.parallel import mesh as tpm
 
 
 class PatchEmbed(nn.Module):
@@ -168,40 +180,76 @@ def prepare_tokens(enc: DinoVisionTransformer, x, masks=None):
     return tokens + _interp_pos_embed(enc.pos_embed, grid, cfg).to(tokens.dtype)
 
 
-def _attention(p: Attention, x, heads: int, kernels: bool):
+def _out(p, x, mesh, seq_shard: bool):
+    """The row-parallel exit of a split module, else the plain linear."""
+    if mesh is None:
+        return linear(p, x)
+    return tpm.row_parallel(p, x, mesh, seq_shard)
+
+
+def _enter(x, mesh, seq_shard: bool):
+    """The input of a split module: all-gathered tokens under sequence
+    parallelism, else the replicated tensor (its backward sums the ranks'
+    partial gradients)."""
+    if mesh is None:
+        return x
+    return tpm.gather_tokens(x, mesh) if seq_shard \
+        else tpm.copy_to_model(x, mesh)
+
+
+def _attention(p: Attention, x, heads: int, kernels: bool, mesh=None,
+               seq_shard: bool = False):
+    """Self-attention of normed tokens.  ``mesh``: p's qkv holds this
+    rank's whole heads (``[q | k | v]`` of them) and ``proj`` its input
+    columns; x is what ``_enter`` gave."""
     b, n, d = x.shape
     dh = d // heads
     qkv = linear(p.qkv, x)  # [q | k | v] along the last axis
+    heads = qkv.shape[-1] // (3 * dh)  # this rank's
     if kernels and attention_kernel.use_kernel(n, dh):
         o = attention_kernel.flash_attention_qkv(qkv, heads, dh ** -0.5)
     else:
         o = attention_kernel.flash_attention_qkv_reference(qkv, heads,
                                                            dh ** -0.5)
-    return linear(p.proj, o)
+    return _out(p.proj, o, mesh, seq_shard)
 
 
-def _mlp(blk: Block, x):
+def _mlp(blk: Block, x, mesh=None, seq_shard: bool = False):
     """The block's feed-forward: GELU MLP, or SwiGLU ``w3(silu(x1) * x2)``
-    with x1, x2 the halves of ``w12(x)`` (JAX ``_mlp``)."""
+    with x1, x2 the halves of ``w12(x)`` (JAX ``_mlp``).  ``mesh``: fc1 /
+    w12 hold this rank's hidden units (w12 its share of each half, so
+    ``silu(x1) * x2`` stays local), fc2 / w3 their input columns."""
     if isinstance(blk.mlp, SwiGLUFFN):
         x1, x2 = linear(blk.mlp.w12, x).chunk(2, dim=-1)
-        return linear(blk.mlp.w3, torch.nn.functional.silu(x1) * x2)
-    return linear(blk.mlp.fc2, gelu(linear(blk.mlp.fc1, x)))
+        return _out(blk.mlp.w3, torch.nn.functional.silu(x1) * x2, mesh,
+                    seq_shard)
+    return _out(blk.mlp.fc2, gelu(linear(blk.mlp.fc1, x)), mesh, seq_shard)
 
 
-def _draw_masks(x, rate: float, generator):
+def _draw_masks(x, rate: float, generator, mesh=None):
     """The two drop-path masks of a block (attention and MLP branch), or
-    None at rate 0 or without a generator."""
+    None at rate 0 or without a generator.  Under a mesh with a data axis
+    the whole batch's masks are drawn and this rank keeps its samples', so
+    they are the masks one device draws."""
     if rate <= 0.0 or generator is None:
         return None
-    return tuple(drop_path_mask(x.shape[0], rate, generator, x.dtype)
-                 for _ in range(2))
+    b = x.shape[0]
+    dp, r = (1, 0) if mesh is None else (mesh.dp, mesh.data_rank)
+    return tuple(drop_path_mask(b * dp, rate, generator, x.dtype)
+                 [r * b:(r + 1) * b] for _ in range(2))
 
 
 def _block(blk: Block, x, cfg: EncoderConfig, kernels: bool, fuse_proj: bool,
-           ln_kernel: bool, masks):
-    """``block_apply`` with its drop-path masks drawn (None: no drop)."""
-    if masks is None and fuse_proj and kernels \
+           ln_kernel: bool, masks, mesh=None):
+    """``block_apply`` with its drop-path masks drawn (None: no drop).
+    ``mesh``: the tensor-parallel mesh (None without one); with
+    ``cfg.seq_shard`` x is this rank's tokens."""
+    if mesh is None and (tpm.sharded(blk.attn) or tpm.sharded(blk.mlp)):
+        raise ValueError("a sharded encoder block needs its mesh")
+    sp = mesh is not None and cfg.seq_shard
+    mesh_a = mesh if tpm.sharded(blk.attn) else None
+    mesh_m = mesh if tpm.sharded(blk.mlp) else None
+    if masks is None and fuse_proj and kernels and mesh is None \
             and attn_proj_kernel.use_fused_proj(x.shape[1], cfg.num_heads,
                                                 cfg.head_dim):
         qkv = linear(blk.attn.qkv, layer_norm(blk.norm1, x, kernel=ln_kernel))
@@ -211,13 +259,14 @@ def _block(blk: Block, x, cfg: EncoderConfig, kernels: bool, fuse_proj: bool,
             qkv, cast_once(proj.weight, qkv.dtype), gb, x, cfg.num_heads,
             cfg.head_dim ** -0.5)
     else:
-        h = _attention(blk.attn, layer_norm(blk.norm1, x, kernel=ln_kernel),
-                       cfg.num_heads, kernels)
+        h = _enter(layer_norm(blk.norm1, x, kernel=ln_kernel), mesh_a, sp)
+        h = _attention(blk.attn, h, cfg.num_heads, kernels, mesh_a, sp)
         h = h * cast_once(blk.ls1.gamma, h.dtype)
         if masks is not None:
             h = apply_drop_path(h, masks[0])
         x = x + h
-    h = _mlp(blk, layer_norm(blk.norm2, x, kernel=ln_kernel))
+    h = _enter(layer_norm(blk.norm2, x, kernel=ln_kernel), mesh_m, sp)
+    h = _mlp(blk, h, mesh_m, sp)
     h = h * cast_once(blk.ls2.gamma, h.dtype)
     if masks is not None:
         h = apply_drop_path(h, masks[1])
@@ -278,7 +327,8 @@ def encode(enc: DinoVisionTransformer, x, tap_idx: Sequence[int],
            kernels: bool = True, fuse_proj: bool = False,
            ln_kernel: bool | None = None, remat: bool = False,
            drop_path_rate: float = 0.0,
-           generator: torch.Generator | None = None, masks=None):
+           generator: torch.Generator | None = None, masks=None,
+           mesh=None):
     """Reference get_intermediate_layers(x, tap_idx, return_class_token=True).
 
     x: (B, H, W, 3) normalised images.  Returns a list of (patch tokens
@@ -292,7 +342,13 @@ def encode(enc: DinoVisionTransformer, x, tap_idx: Sequence[int],
     ``generator`` applies stochastic depth with DINOv2's linear schedule,
     block i at rate · i / (depth - 1) (reference dinov2.py:115-120); the
     masks are drawn before the checkpoint, so the recompute replays them.
-    ``masks``: see ``prepare_tokens``."""
+    ``masks``: see ``prepare_tokens``.
+
+    ``mesh``: the rank's ``parallel/mesh.Mesh`` (tensor parallelism where
+    its model axis is above 1, the drop-path draws of its data slice).
+    With ``cfg.seq_shard`` the tokens are split over the model axis after
+    ``prepare_tokens`` (their count must divide by tp: 1370 at 518 does)
+    and each tap is gathered after its final norm."""
     from torch.utils.checkpoint import checkpoint
 
     cfg = enc.cfg
@@ -300,20 +356,35 @@ def encode(enc: DinoVisionTransformer, x, tap_idx: Sequence[int],
         ln_kernel = kernels
     taps = set(tap_idx)
     h = prepare_tokens(enc, x, masks=masks)
+    dp_mesh = mesh
+    if not tpm.tp_on(mesh):
+        mesh = None
+    sp = mesh is not None and cfg.seq_shard
+    if sp:
+        if not all(tpm.sharded(b.attn) and tpm.sharded(b.mlp)
+                   for b in enc.blocks):
+            raise ValueError("sequence parallelism needs every encoder "
+                             "attention and MLP split over the model axis")
+        if h.shape[1] % mesh.tp:
+            raise ValueError(f"sequence parallelism splits {h.shape[1]} "
+                             f"tokens over tp={mesh.tp}: not divisible")
+        h = tpm.split_tokens(h, mesh)
     depth = len(enc.blocks)
     out = {}
     for i, blk in enumerate(enc.blocks):
         rate = drop_path_rate * i / max(depth - 1, 1)
-        dp = _draw_masks(h, rate, generator)
+        dp = _draw_masks(h, rate, generator, dp_mesh)
         if remat:
             h = checkpoint(_block, blk, h, cfg, kernels, fuse_proj, ln_kernel,
-                           dp, use_reentrant=False)
+                           dp, mesh, use_reentrant=False)
         else:
-            h = _block(blk, h, cfg, kernels, fuse_proj, ln_kernel, dp)
+            h = _block(blk, h, cfg, kernels, fuse_proj, ln_kernel, dp, mesh)
         if i in taps:
             out[i] = h
     result = []
     for i in tap_idx:
         t = layer_norm(enc.norm, out[i], kernel=ln_kernel)
+        if sp:
+            t = tpm.gather_replicated(t, mesh.model_group, 1)
         result.append((t[:, 1 + cfg.num_register_tokens:], t[:, 0]))
     return result

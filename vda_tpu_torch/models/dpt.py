@@ -141,15 +141,16 @@ def dpt_head_temporal_stage(head: DPTHeadTemporal, features, patch_hw,
                             cached_hidden_state_list: Optional[List] = None,
                             cache_kind: str = "h", need_caches: bool = True,
                             kernels: bool = True, resize_kernel: bool = False,
-                            ln_kernel: bool | None = None):
+                            ln_kernel: bool | None = None, mesh=None):
     """The cache-coupled front of the head (reference dpt_temporal.py:53-123
     up to refinenet3): tap projections, the four motion modules, the rn
     convs and refinenets 4/3.  ``cached_hidden_state_list`` holds each
     module's contexts in order (two a module); ``cache_kind="kv"`` asks for
     (k, v) cache rows; ``resize_kernel`` lets the refinenets' upsamples take
     K10 where its gate admits them; ``kernels`` / ``ln_kernel``: see
-    ``temporal_module_apply``.  Returns ((path_3, l2, l1), new cache
-    rows)."""
+    ``temporal_module_apply``; ``mesh``: the tensor-parallel mesh of the
+    motion modules' attention (the rest of the head is replicated).
+    Returns ((path_3, l2, l1), new cache rows)."""
     sc = head.scratch
     mms = head.motion_modules
     n_cache = 0
@@ -165,7 +166,8 @@ def dpt_head_temporal_stage(head: DPTHeadTemporal, features, patch_hw,
         y, rows = temporal_module_apply(mms[i], xt, cfg, cache,
                                         want_kv=cache_kind == "kv",
                                         need_caches=need_caches,
-                                        kernels=kernels, ln_kernel=ln_kernel)
+                                        kernels=kernels, ln_kernel=ln_kernel,
+                                        mesh=mesh)
         return y.reshape(x.shape), rows
 
     layer_1, layer_2, layer_3, layer_4 = _project_and_resize(head, features,
@@ -219,18 +221,20 @@ def dpt_head_temporal_apply(head: DPTHeadTemporal, features, patch_hw,
                             micro_batch_size: int = 4, cache_kind: str = "h",
                             need_caches: bool = True, kernels: bool = True,
                             resize_kernel: bool = False,
-                            ln_kernel: bool | None = None):
+                            ln_kernel: bool | None = None, mesh=None):
     """features: four (tokens (B*T, N, D), cls) taps, T == frame_length new
     frames.  Returns (depth (B*T, 14*ph, 14*pw, 1), new cache rows, two a
     motion module).  ``need_caches=False`` (offline windows) lets K3/K4
     take the blocks they admit, which return no cache rows;
     ``resize_kernel`` sends the upsamples K10's gate admits to K10;
     ``ln_kernel`` (default: ``kernels``) the motion modules' LayerNorms to
-    K2."""
+    K2; ``mesh``: see ``dpt_head_temporal_stage`` (the tail runs whole on
+    every rank, chunked by the same rule: each frame's values do not
+    depend on its chunk)."""
     stage_out, caches = dpt_head_temporal_stage(
         head, features, patch_hw, frame_length, cfg,
         cached_hidden_state_list=cached_hidden_state_list,
         cache_kind=cache_kind, need_caches=need_caches, kernels=kernels,
-        resize_kernel=resize_kernel, ln_kernel=ln_kernel)
+        resize_kernel=resize_kernel, ln_kernel=ln_kernel, mesh=mesh)
     return dpt_head_temporal_tail(head, stage_out, patch_hw,
                                   micro_batch_size, resize_kernel), caches

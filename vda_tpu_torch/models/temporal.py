@@ -30,6 +30,16 @@ once the context's rows are distinct, over the cache buffers in place.
 (``attn_impl="xla"``) is ``kernels=False, ln_kernel=True``.  The JAX gates
 keep K3, K4 and K6 to APE, so under RoPE K5 takes every attention over
 whole sequences and the kv cache runs plain.
+
+Tensor parallelism (``mesh`` with a model axis above 1, over a model that
+``parallel/mesh.shard_model`` has split): ``to_q`` / ``to_k`` / ``to_v``
+are column-parallel, three products with no fused (C, 3C) weight (JAX's
+``tp_layout`` branch), the attention runs on the rank's ``heads / tp``
+heads (K5 where its gate takes the local shape) and ``to_out`` is
+row-parallel, one all-reduce with the bias added after it.  K3 and K4 stay
+off, as JAX's gates say: their epilogues add the residual before the sum
+is complete.  The kv cache rows a rank makes and reads are its channels
+(whole heads); RoPE rotates them at their pair indices in the whole width.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ from vda_tpu_torch.ops.layers import (
     layer_norm,
     linear,
 )
+from vda_tpu_torch.parallel import mesh as tpm
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> torch.Tensor:
@@ -91,11 +102,42 @@ def apply_rope(x, cos, sin):
     return out.reshape(x.shape).to(x.dtype)
 
 
-def _rope_at(x, start: int):
-    """``apply_rope`` of (BD, T, C) x at positions start .. start + T - 1."""
+def _rope_at(x, start: int, width: int = 0, offset: int = 0):
+    """``apply_rope`` of (BD, T, C) x at positions start .. start + T - 1.
+    ``width`` / ``offset``: x holds channels offset .. offset + C of a
+    ``width``-channel tensor (a rank's shard), rotated at their pair
+    indices there (default: x is the whole width)."""
     t, c = x.shape[1], x.shape[2]
-    cos, sin = rope_tables(c, start + t, x.device)
-    return apply_rope(x, cos[start:], sin[start:])
+    cos, sin = rope_tables(width or c, start + t, x.device)
+    pairs = slice(offset // 2, (offset + c) // 2)
+    return apply_rope(x, cos[start:, pairs], sin[start:, pairs])
+
+
+class _Split:
+    """How a rank holds one attention sub-block: the model's mesh where
+    ``shard_model`` split it (else None), its heads, the head width, and
+    its channels' offset in the whole width (for RoPE)."""
+
+    def __init__(self, attn, cfg, c: int, mesh):
+        if tpm.sharded(attn) and mesh is None:
+            raise ValueError("a sharded motion module needs its mesh")
+        self.mesh = mesh if tpm.sharded(attn) else None
+        self.dh = c // cfg.num_attention_heads
+        self.width = c
+        local = attn.to_q.weight.shape[0]
+        self.heads = local // self.dh
+        self.offset = 0 if self.mesh is None \
+            else self.mesh.model_rank * local
+
+    def enter(self, h):
+        return h if self.mesh is None else tpm.copy_to_model(h, self.mesh)
+
+    def out(self, p, o):
+        return linear(p, o) if self.mesh is None \
+            else tpm.row_parallel(p, o, self.mesh)
+
+    def rope(self, x, start):
+        return _rope_at(x, start, self.width, self.offset)
 
 
 class PositionalEncoding(nn.Module):
@@ -184,7 +226,8 @@ def _attend(q, k, v, heads: int, kernels: bool):
 
 
 def _temporal_attention(attn: TemporalAttention, h, cfg: ModelConfig, cache,
-                        want_kv: bool = False, kernels: bool = True):
+                        want_kv: bool = False, kernels: bool = True,
+                        mesh=None):
     """h: (BD, T_new, C) normed sequences.  Reference motion_module.py:
     242-321 (JAX ``_temporal_attention``).
 
@@ -195,13 +238,15 @@ def _temporal_attention(attn: TemporalAttention, h, cfg: ModelConfig, cache,
     valid)``, the whole cache buffers read in place by K6
     (``_temporal_attention_kv_direct``).  Returns (out (BD, T_new, C),
     cache_row): the new rows in the cache's kind, (k_new, v_new) when
-    ``want_kv``."""
+    ``want_kv``.  ``mesh``: the tensor-parallel mesh; a split ``attn``
+    makes and reads this rank's channels of q, k, v and the kv cache."""
+    split = _Split(attn, cfg, h.shape[-1], mesh)
     if isinstance(cache, tuple):
         if len(cache) == 4:
             return _temporal_attention_kv_direct(attn, h, cfg, cache, kernels)
         if len(cache) == 3:
             return _temporal_attention_kv_ctx(attn, h, cfg, cache, kernels)
-        return _temporal_attention_kv(attn, h, cfg, cache)
+        return _temporal_attention_kv(attn, h, cfg, cache, split)
     input_hidden_states = h
     d_in = 0
     if cache is not None:
@@ -211,7 +256,14 @@ def _temporal_attention(attn: TemporalAttention, h, cfg: ModelConfig, cache,
     rope = cfg.pe == "rope"
     if not rope:
         h = h + _pe(attn, t_full, h.dtype)
-    if d_in == 0:
+    h = split.enter(h)
+    if split.mesh is not None:  # three column-parallel products
+        q = linear(attn.to_q, h[:, d_in:])
+        k = linear(attn.to_k, h)
+        v = linear(attn.to_v, h)
+        if rope:
+            q, k = split.rope(q, d_in), split.rope(k, 0)
+    elif d_in == 0:
         # one fused (C, 3C) product; q, k, v are column slices of it
         qkv = torch.matmul(h, tk._wqkv(attn, h.dtype).t())
         if rope:  # q and k rotated at the same positions, as one (2, C)
@@ -227,8 +279,8 @@ def _temporal_attention(attn: TemporalAttention, h, cfg: ModelConfig, cache,
         v = linear(attn.to_v, h)
         if rope:
             q, k = _rope_at(q, d_in), _rope_at(k, 0)
-    o = _attend(q, k, v, cfg.num_attention_heads, kernels)
-    out = linear(attn.to_out[0], o)
+    o = _attend(q, k, v, split.heads, kernels)
+    out = split.out(attn.to_out[0], o)
     if want_kv:
         return out, (linear(attn.to_k, input_hidden_states),
                      linear(attn.to_v, input_hidden_states))
@@ -236,16 +288,21 @@ def _temporal_attention(attn: TemporalAttention, h, cfg: ModelConfig, cache,
 
 
 def _temporal_attention_kv(attn: TemporalAttention, h, cfg: ModelConfig,
-                           cache):
+                           cache, split: Optional[_Split] = None):
     """The "kv" cache: pre-PE K/V projections of the context.  to_k and to_v
     have no bias, so to_k(h_i + pe_i) == to_k(h_i) + to_k(pe_i): the cache
     holds to_k(h_i) and a (T, C) product adds the projected encoding (JAX
     ``_temporal_attention_kv``).  Under RoPE the rotation follows the
-    projection, so the split is exact: q and the assembled k are rotated."""
+    projection, so the split is exact: q and the assembled k are rotated.
+    ``split`` (``_Split``): under tensor parallelism the cache holds this
+    rank's channels."""
     kc, vc = cache
     bd, t_new, c = h.shape
+    if split is None:
+        split = _Split(attn, cfg, c, None)
     d_in = kc.shape[1]
     t_full = d_in + t_new
+    h = split.enter(h)
     k_new = linear(attn.to_k, h)
     v_new = linear(attn.to_v, h)
     k = torch.cat([kc.to(h.dtype), k_new], dim=1)
@@ -256,15 +313,14 @@ def _temporal_attention_kv(attn: TemporalAttention, h, cfg: ModelConfig,
         k = k + linear(attn.to_k, pe)[None]
         v = v + linear(attn.to_v, pe)[None]
     else:  # the whole context rotated at its positions in it, each step
-        q = _rope_at(linear(attn.to_q, h), d_in)
-        k = _rope_at(k, 0)
-    heads = cfg.num_attention_heads
-    dh = c // heads
+        q = split.rope(linear(attn.to_q, h), d_in)
+        k = split.rope(k, 0)
+    heads, dh = split.heads, split.dh
     o = attention_plain(q.reshape(bd, t_new, heads, dh),
                         k.reshape(bd, t_full, heads, dh),
                         v.reshape(bd, t_full, heads, dh),
-                        dh ** -0.5).reshape(bd, t_new, c)
-    return linear(attn.to_out[0], o), (k_new, v_new)
+                        dh ** -0.5).reshape(bd, t_new, heads * dh)
+    return split.out(attn.to_out[0], o), (k_new, v_new)
 
 
 def _temporal_attention_kv_ctx(attn: TemporalAttention, h, cfg: ModelConfig,
@@ -338,12 +394,14 @@ def _temporal_attention_kv_direct(attn: TemporalAttention, h,
 
 def _transformer_block(block: TemporalTransformerBlock, h, cfg: ModelConfig,
                        caches, want_kv: bool = False, need_caches: bool = True,
-                       kernels: bool = True, ln_kernel: bool = True):
+                       kernels: bool = True, ln_kernel: bool = True,
+                       mesh=None):
     """h: (BD, T_new, C).  Reference motion_module.py:172-189.  Returns (h,
     the new cache rows of its attention sub-blocks)."""
     c = h.shape[-1]
     heads = cfg.num_attention_heads
     use_k4 = (caches is None and not want_kv and not need_caches and kernels
+              and not tpm.tp_on(mesh)
               and tk.attn_fused_supported(c, h.shape[1], cfg.pe, heads))
     out_caches = []
     for i, (attn, norm) in enumerate(zip(block.attention_blocks,
@@ -355,7 +413,7 @@ def _transformer_block(block: TemporalTransformerBlock, h, cfg: ModelConfig,
         hn = layer_norm(norm, h, eps=1e-5, kernel=ln_kernel)
         attn_out, cache_row = _temporal_attention(
             attn, hn, cfg, None if caches is None else caches[i],
-            want_kv=want_kv, kernels=kernels)
+            want_kv=want_kv, kernels=kernels, mesh=mesh)
         h = attn_out + h
         out_caches.append(cache_row)
     return tk.feed_forward(block, h, ln_kernel=ln_kernel), out_caches
@@ -364,7 +422,8 @@ def _transformer_block(block: TemporalTransformerBlock, h, cfg: ModelConfig,
 def temporal_module_apply(mm: TemporalModule, x, cfg: ModelConfig,
                           cache_list: Optional[List] = None,
                           want_kv: bool = False, need_caches: bool = True,
-                          kernels: bool = True, ln_kernel: bool | None = None):
+                          kernels: bool = True, ln_kernel: bool | None = None,
+                          mesh=None):
     """x: (B, T, H, W, C) -> ((B, T, H, W, C), new cache rows).
 
     With ``cache_list`` (streaming) T counts the new frames and each entry
@@ -373,7 +432,8 @@ def temporal_module_apply(mm: TemporalModule, x, cfg: ModelConfig,
     attention sub-block.  ``need_caches=False`` (offline windows) lets K3
     take whole blocks and K4 the attention sub-blocks where the JAX gates
     admit them; those return no cache rows.  ``kernels=False`` keeps K3-K6
-    off; ``ln_kernel`` (default: ``kernels``) decides K2."""
+    off; ``ln_kernel`` (default: ``kernels``) decides K2.  ``mesh``: the
+    tensor-parallel mesh (K3 and K4 off under it)."""
     if ln_kernel is None:
         ln_kernel = kernels
     b, t, hh, ww, c = x.shape
@@ -385,7 +445,7 @@ def temporal_module_apply(mm: TemporalModule, x, cfg: ModelConfig,
     # (B, T, D, C) -> (B*D, T, C) sequences per spatial position
     h = h.transpose(1, 2).reshape(b * hh * ww, t, c).contiguous()
     use_k3 = (cache_list is None and not want_kv and not need_caches
-              and kernels
+              and kernels and not tpm.tp_on(mesh)
               and tk.fused_block_supported(c, t, cfg.pe, heads,
                                            cfg.num_attention_blocks))
     n_per = cfg.num_attention_blocks
@@ -399,7 +459,8 @@ def temporal_module_apply(mm: TemporalModule, x, cfg: ModelConfig,
         if cache_list is not None:
             caches = cache_list[i * n_per:(i + 1) * n_per]
         h, out_caches = _transformer_block(block, h, cfg, caches, want_kv,
-                                           need_caches, kernels, ln_kernel)
+                                           need_caches, kernels, ln_kernel,
+                                           mesh)
         all_caches.extend(out_caches)
     h = h.reshape(b, hh * ww, t, c).transpose(1, 2)
     h = linear(tt.proj_out, h).reshape(b, t, hh, ww, c)

@@ -4,7 +4,10 @@ Counterpart of ``vda_tpu/models/vda.py``: ``forward_features`` (the
 encoder), ``forward_depth`` (the head, with the streaming caches) and
 ``forward`` (offline windows).
 x layout: (B, T, H, W, 3) channels-last normalised frames; depth (B, T, H, W)
-non-negative.
+non-negative.  A model ``parallel/mesh.shard_model`` split over a mesh
+runs the encoder and the motion modules' attention tensor-parallel on that
+mesh (``model.mesh``, the one place it is kept); the DPT head and the tail
+run whole on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from vda_tpu_torch.config import ModelConfig
 from vda_tpu_torch.models.dinov2 import DinoVisionTransformer, encode
 from vda_tpu_torch.models.dpt import DPTHeadTemporal, dpt_head_temporal_apply
 from vda_tpu_torch.ops.resize import resize_bilinear
+from vda_tpu_torch.parallel.mesh import model_mesh
 
 ATTN_IMPLS = ("auto", "xla", "plain")
 
@@ -69,7 +73,7 @@ def forward_features(model: VideoDepthAnything, x, attn_impl: str = "auto",
     return encode(model.pretrained, x.reshape(b * t, h, w, c),
                   model.cfg.intermediate_layer_idx, kernels, fuse_proj,
                   ln_kernel, remat=remat, drop_path_rate=drop_path_rate,
-                  generator=generator)
+                  generator=generator, mesh=model_mesh(model))
 
 
 def forward_depth(model: VideoDepthAnything, features, x_shape,
@@ -91,7 +95,8 @@ def forward_depth(model: VideoDepthAnything, features, x_shape,
         cached_hidden_state_list=cached_hidden_state_list,
         micro_batch_size=micro_batch_size, cache_kind=cache_kind,
         need_caches=need_caches, kernels=kernels,
-        resize_kernel=resize_kernel, ln_kernel=ln_kernel)
+        resize_kernel=resize_kernel, ln_kernel=ln_kernel,
+        mesh=model_mesh(model))
     depth = torch.relu(resize_bilinear(depth, (h, w), align_corners=True))
     return depth[..., 0].reshape(b, t, h, w), caches
 

@@ -1,6 +1,6 @@
 """Training step, PyTorch.
 
-Counterpart of ``vda_tpu/parallel/train.py`` on one device: AdamW with
+Counterpart of ``vda_tpu/parallel/train.py``: AdamW with
 optax's semantics, an optional warmup-cosine schedule, global-norm clipping
 and gradient accumulation, around ``video_depth_loss`` on the model's
 ``attn_impl="xla"`` forward (JAX's training kernel set: K2, no attention or
@@ -23,6 +23,22 @@ difference under 1e-6 / max_norm).  Accumulation is ``optax.MultiSteps``:
 k micro-steps update a running mean of their gradients (``acc + (g - acc) /
 (n + 1)``) and leave the parameters untouched; the k-th clips that mean and
 applies one AdamW update.
+
+Under a mesh (``make_train_step(mesh=)``, the model sharded by
+``parallel/mesh.shard_model``) each data rank takes its slice of the batch
+and the loss is the whole batch's (``video_depth_loss(group=)``): a rank's
+backward carries that loss's gradient to its own samples, so the
+gradients are summed over the data group.  A replicated parameter gets
+the same gradient on every model rank through the collectives' backward,
+up to the card's nondeterministic sums (cuDNN's weight gradients), so its
+gradient is averaged over the model group, which keeps its copies equal;
+with sequence parallelism the ones of the token-sharded regions (the
+encoder's norms, LayerScales and row-parallel biases, and its final norm)
+hold the gradient of this rank's tokens and are summed instead.  The
+global norm (the metric and the clipping) sums the sharded gradients'
+squares over the model group and counts the replicated ones once, so it is
+``optax.global_norm`` of the whole gradient; AdamW and the accumulation act
+on each rank's pieces as they are.
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ import torch
 from vda_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from vda_tpu_torch.loss import video_depth_loss
 from vda_tpu_torch.models.vda import VideoDepthAnything, forward
+from vda_tpu_torch.parallel import mesh as tpm
 
 
 def warmup_cosine(count: int, peak: float, warmup_steps: int,
@@ -54,10 +71,46 @@ def warmup_cosine(count: int, peak: float, warmup_steps: int,
     return peak * ((1.0 - alpha) * cosine + alpha)
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, sharded=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``),
-    fp32, on the tensors' device."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    fp32, on the tensors' device.  ``sharded`` (one bool a tensor) and
+    ``mesh``: the sharded tensors' squares are summed over the model group,
+    the replicated ones counted once."""
+    tensors = list(tensors)
+    if sharded is None or mesh is None or mesh.model_group is None:
+        return torch.sqrt(sum((t.float() * t.float()).sum()
+                              for t in tensors))
+    sq = [torch.zeros((), device=tensors[0].device) for _ in range(2)]
+    for t, s in zip(tensors, sharded, strict=True):
+        sq[int(s)] = sq[int(s)] + (t.float() * t.float()).sum()
+    return torch.sqrt(sq[0] + tpm.all_reduce_(sq[1].reshape(1),
+                                              mesh.model_group)[0])
+
+
+def _sum_grads(grads, group, bucket: int = 1 << 24) -> None:
+    """Sum tensors over a group in place, flattened into buckets of at
+    most ``bucket`` elements of one dtype (one collective a bucket)."""
+    if group is None:
+        return
+    pending, n = [], 0
+
+    def flush():
+        nonlocal pending, n
+        if pending:
+            flat = torch.cat([g.reshape(-1) for g in pending])
+            tpm.all_reduce_(flat, group)
+            off = 0
+            for g in pending:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+        pending, n = [], 0
+
+    for g in grads:
+        if pending and (n + g.numel() > bucket or g.dtype != pending[0].dtype):
+            flush()
+        pending.append(g)
+        n += g.numel()
+    flush()
 
 
 @dataclasses.dataclass
@@ -112,10 +165,12 @@ class Optimizer:
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         return OptState(adam, acc)
 
-    def update(self, st: OptState, params: List[torch.Tensor]) -> bool:
+    def update(self, st: OptState, params: List[torch.Tensor],
+               norm: Callable = global_norm) -> bool:
         """One micro-step from the parameters' ``.grad``: accumulate, and
-        at the end of a group (every call without accumulation) clip and
-        apply AdamW in place.  Returns whether the parameters changed."""
+        at the end of a group (every call without accumulation) clip by
+        ``norm`` of the gradients and apply AdamW in place.  Returns
+        whether the parameters changed."""
         grads = [p.grad for p in params]
         if st.acc is not None:
             n = st.mini_step
@@ -127,9 +182,9 @@ class Optimizer:
             st.mini_step = 0
             grads = st.acc
         if self.clip_norm > 0.0:
-            norm = global_norm(grads)
-            grads = [torch.where(norm < self.clip_norm, g,
-                                 g / norm * self.clip_norm) for g in grads]
+            n = norm(grads)
+            grads = [torch.where(n < self.clip_norm, g,
+                                 g / n * self.clip_norm) for g in grads]
         for p, g in zip(params, grads):
             p.grad = g
         for group in st.adam.param_groups:
@@ -164,6 +219,10 @@ class TrainState:
     def params(self) -> List[torch.Tensor]:
         return [p for p in self.model.parameters() if p.requires_grad]
 
+    def param_names(self) -> List[str]:
+        return [n for n, p in self.model.named_parameters()
+                if p.requires_grad]
+
 
 def init_train_state(model: VideoDepthAnything,
                      optimizer: Optional[Optimizer] = None) -> TrainState:
@@ -190,7 +249,7 @@ def make_train_step(optimizer: Optional[Optimizer] = None,
                     remat: bool = True, drop_path_rate: float = 0.0,
                     augment_hw: Optional[tuple] = None,
                     augment_seed: int = 0,
-                    attn_impl: str = "xla") -> Callable:
+                    attn_impl: str = "xla", mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics) (JAX
     ``make_train_step``, whose ``cfg`` the port's model carries; ``state``
     is updated in place and returned).
@@ -206,12 +265,22 @@ def make_train_step(optimizer: Optional[Optimizer] = None,
     ``"plain"`` (no kernel, the reference the kernels are held to).
     metrics: spatial_loss, stable_loss, total_loss and grad_norm (of this
     micro-step's gradients, before accumulation and clipping), 0-dim device
-    tensors."""
+    tensors.
+
+    ``mesh`` (a ``parallel/mesh.Mesh``; the model is sharded over it here
+    if it is not yet; without one, the mesh the model was sharded over,
+    ``parallel/mesh.use_mesh``): ``batch`` is this data rank's slice of
+    the global batch (in data-rank order), and the metrics are the global
+    batch's on every rank."""
     if optimizer is None:
         optimizer = make_optimizer()
+    given = mesh
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
+        mesh = tpm.use_mesh(model, given)
+        data = (0, 1) if mesh is None else (mesh.data_rank, mesh.dp)
+        group = None if mesh is None else mesh.data_group
         device = next(model.parameters()).device
         batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
                  for k, v in batch.items()}
@@ -219,7 +288,8 @@ def make_train_step(optimizer: Optional[Optimizer] = None,
         if augment_hw is not None:
             from vda_tpu_torch.utils.augment import augment_batch
 
-            batch = augment_batch(aug_gen, batch, out_hw=tuple(augment_hw))
+            batch = augment_batch(aug_gen, batch, out_hw=tuple(augment_hw),
+                                  data_slice=data)
         mean = torch.tensor(IMAGENET_MEAN, device=device)
         std = torch.tensor(IMAGENET_STD, device=device)
         video = (batch["video"].to(torch.float32) - mean) / std
@@ -230,7 +300,7 @@ def make_train_step(optimizer: Optional[Optimizer] = None,
                        generator=dp_gen if drop_path_rate > 0.0 else None)
         losses = video_depth_loss(pred.to(torch.float32),
                                   batch["depth"].to(torch.float32),
-                                  batch["mask"])
+                                  batch["mask"], group=group)
         params = state.params()
         for p in params:
             p.grad = None
@@ -239,8 +309,29 @@ def make_train_step(optimizer: Optional[Optimizer] = None,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["grad_norm"] = global_norm(p.grad for p in params)
-        optimizer.update(state.opt_state, params)
+        norm = global_norm
+        if mesh is not None:
+            names = state.param_names()
+            specs = getattr(model, "tp_specs", {})
+            if tpm.tp_on(mesh):
+                sp = model.cfg.vit.seq_shard
+                partial = [sp and tpm.sp_partial(n, specs) for n in names]
+                _sum_grads([p.grad for p, pa in zip(params, partial) if pa],
+                           mesh.model_group)
+                # the rest of the replicated: their mean keeps the copies
+                # equal (see the module docstring)
+                rep = [p.grad for n, p, pa in zip(names, params, partial)
+                       if n not in specs and not pa]
+                if rep:
+                    _sum_grads(rep, mesh.model_group)
+                    torch._foreach_div_(rep, float(mesh.tp))
+            _sum_grads([p.grad for p in params], group)
+            sharded = [n in specs for n in names]
+
+            def norm(grads):
+                return global_norm(grads, sharded, mesh)
+        metrics["grad_norm"] = norm(p.grad for p in params)
+        optimizer.update(state.opt_state, params, norm)
         for p in params:
             p.grad = None
         state.step += 1

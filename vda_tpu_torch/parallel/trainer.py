@@ -1,9 +1,10 @@
-"""Training loop: steps, metrics, checkpoints and resume, on one device.
+"""Training loop: steps, metrics, checkpoints and resume.
 
 Counterpart of ``vda_tpu/parallel/trainer.py``: it wires the train step
 (``parallel/train.py``) to the checkpoints (``utils/checkpoint.py``) and
 the prefetching input pipeline (``utils/data.py``), so a fine-tune can be
-run and resumed.
+run and resumed, on one device or on every rank of a torch.distributed
+world (``tp`` / ``sp``: ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import time
 from typing import Callable, Iterable, Optional
 
 from vda_tpu_torch.models.vda import VideoDepthAnything
+from vda_tpu_torch.parallel import mesh as tpm
 from vda_tpu_torch.parallel.train import (
     init_train_state,
     make_optimizer,
@@ -58,12 +60,31 @@ def train(
     wall_s}); each write reads the metrics on the host, a device sync a
     step.  ``ckpt_dir``: resume from its latest checkpoint (the batches the
     earlier run consumed are skipped) and save every ``ckpt_every`` steps
-    and at the end.  ``tp`` > 1 and ``sp`` (tensor and sequence
-    parallelism) are multi-GPU work, not ported."""
-    if tp > 1 or sp:
-        raise NotImplementedError("tensor / sequence parallel training is "
-                                  "multi-GPU work, not ported (tp=1 only)")
+    and at the end.
+
+    In a torch.distributed world (every rank calls this with the same
+    data) the ranks form ``make_mesh(tp=tp)``: the model is sharded over
+    the model axis, every rank pulls the same global batch and keeps its
+    data slice (B must divide by world / tp), the loss and metrics are the
+    global batch's, checkpoints are saved whole (rank 0 writes) and
+    restored in pieces, and rank 0 alone writes ``metrics_path``.
+    ``sp=True`` (needs tp > 1) adds sequence parallelism: the encoder's
+    norm regions are token-sharded (its token count must divide by tp);
+    it sets ``seq_shard`` on the model's config."""
+    if sp and tp <= 1:
+        raise ValueError("sp=True requires tp > 1")
     device = next(model.parameters()).device
+    mesh = tpm.make_mesh(tp=tp, device=device)
+    if mesh.world == 1:
+        mesh = None
+    else:
+        if sp:
+            import dataclasses
+
+            vit = dataclasses.replace(model.cfg.vit, seq_shard=True)
+            model.cfg = model.cfg.replace(vit=vit)
+            model.pretrained.cfg = vit
+        tpm.shard_model(model, mesh)
     optimizer = make_optimizer(learning_rate,
                                warmup_steps=warmup_steps // accum,
                                total_steps=(max(num_steps // accum, 1)
@@ -74,25 +95,31 @@ def train(
     if ckpt_dir:
         state, start_step = resume_or_init(ckpt_dir, state)
     step_fn = make_train_step(optimizer, augment_hw=augment_hw,
-                              augment_seed=augment_seed)
+                              augment_seed=augment_seed, mesh=mesh)
 
     if start_step:
         # a resumed run sees the same data stream as an unbroken one
         data_iter = itertools.islice(data_iter, start_step, None)
     take = max(num_steps - start_step, 0)
+    data_slice = None if mesh is None else (mesh.data_rank, mesh.dp)
     if prefetch > 0:
         from vda_tpu_torch.utils.data import sized_prefetch
 
         data_iter = sized_prefetch(data_iter, device, buffer_size=prefetch,
-                                   limit=take)
+                                   limit=take, data_slice=data_slice)
     else:
+        from vda_tpu_torch.utils.data import take_slice
+
         data_iter = itertools.islice(data_iter, take)
+        if data_slice is not None:
+            data_iter = (take_slice(b, *data_slice) for b in data_iter)
+    writer = mesh is None or mesh.rank == 0
     t0 = time.time()
     for step, batch in enumerate(data_iter, start=start_step):
         if step >= num_steps:
             break
         state, metrics = step_fn(state, batch)
-        if metrics_path:
+        if metrics_path and writer:
             with open(metrics_path, "a") as f:
                 f.write(json.dumps(
                     {"step": step,
@@ -100,7 +127,7 @@ def train(
                      "wall_s": round(time.time() - t0, 3)}) + "\n")
         if log_fn is not None:
             log_fn(step, metrics)
-        elif step % 10 == 0:
+        elif step % 10 == 0 and writer:
             m = {k: float(v) for k, v in metrics.items()}
             print(f"step {step}: total={m['total_loss']:.4f} "
                   f"spatial={m['spatial_loss']:.4f} "

@@ -122,9 +122,16 @@ def apply_augment(batch: Dict[str, torch.Tensor], draws, out_hw):
 
 def augment_batch(generator: torch.Generator, batch: Dict[str, torch.Tensor],
                   out_hw: Tuple[int, int], scale_range=(0.6, 1.0),
-                  jitter=(0.2, 0.2, 0.2)) -> Dict[str, torch.Tensor]:
+                  jitter=(0.2, 0.2, 0.2),
+                  data_slice: Tuple[int, int] = (0, 1)
+                  ) -> Dict[str, torch.Tensor]:
     """Augment a training batch to spatial size ``out_hw`` (JAX
-    ``augment_batch``): ``sample_augment`` then ``apply_augment``."""
+    ``augment_batch``): ``sample_augment`` then ``apply_augment``.
+    ``data_slice`` (index, count): the batch is slice ``index`` of
+    ``count`` equal slices of a global batch, whose draws are made and
+    this slice's kept (data parallelism draws what one device draws)."""
     b, _, h, w = batch["depth"].shape
-    draws = sample_augment(generator, b, h, w, scale_range, jitter)
+    index, count = data_slice
+    draws = sample_augment(generator, b * count, h, w, scale_range, jitter)
+    draws = {k: v[index * b:(index + 1) * b] for k, v in draws.items()}
     return apply_augment(batch, draws, tuple(out_hw))

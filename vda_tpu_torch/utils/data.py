@@ -118,11 +118,33 @@ def prefetch_to_device(data_iter: Iterable, device=None,
         stop.set()
 
 
+def take_slice(item, index: int, count: int):
+    """Slice ``index`` of ``count`` equal slices along axis 0 of every
+    array in a batch (a dict, list or tuple of them, or one): a data
+    rank's share of the global batch."""
+    if isinstance(item, dict):
+        return {k: take_slice(v, index, count) for k, v in item.items()}
+    if isinstance(item, (list, tuple)):
+        return type(item)(take_slice(v, index, count) for v in item)
+    if not isinstance(item, (np.ndarray, torch.Tensor)):
+        return item
+    b = item.shape[0]
+    if b % count:
+        raise ValueError(f"a batch of {b} does not split over {count} "
+                         "data ranks")
+    k = b // count
+    return item[index * k:(index + 1) * k]
+
+
 def sized_prefetch(data_iter: Iterable, device=None, buffer_size: int = 2,
-                   limit: Optional[int] = None) -> Iterator:
+                   limit: Optional[int] = None,
+                   data_slice: Optional[tuple] = None) -> Iterator:
     """``prefetch_to_device`` with an optional item cap: the producer stops
     after ``limit`` items, so an endless sampler ends cleanly instead of
-    leaving a blocked thread behind."""
+    leaving a blocked thread behind.  ``data_slice`` (index, count): each
+    item is cut to ``take_slice(item, index, count)`` before its copy."""
+    if data_slice is not None:
+        data_iter = (take_slice(item, *data_slice) for item in data_iter)
     if limit is not None:
         def capped(src):
             if limit <= 0:
