@@ -44,9 +44,9 @@ with every launch counter set to 0 just before it and read just after:
     path;
   * ``vitg_window``: one 1x32x518x518 forward of a seeded vitg
     (``load_model_params("vitg", random_init=True)``: the SwiGLU encoder,
-    24 heads, motion modules at C 1536 on K5 and C 384 on K3) against the
-    all-plain path, launches and their loops asserted, peak memory; the
-    model freed after;
+    24 heads, motion modules at C 1536 on K5's Hopper code and C 384 on
+    K3) against the all-plain path, launches and their loops asserted,
+    peak memory; the model freed after;
   * ``rope``: vitl with RoPE motion modules (``pe="rope"``): a window
     against the all-plain path (K5 in every attention sub-block, K3/K4
     off), then 48 ``submit`` steps without and with ``ctx_kernel`` (K6
@@ -105,9 +105,9 @@ with every launch counter set to 0 just before it and read just after:
     and K6's two, the design steps and stages of K3/K4's Hopper chain at
     vitl's four temporal shapes, and the design steps of K6's Hopper loop
     (the four stream shapes), K10's Hopper kernel (the two tail shapes)
-    and K5's and K8's Hopper code (the vits window's and the first stream
-    step's K5 shapes, K8's multi-crop and 32 x 1370), each arm against its
-    twin;
+    and K5's and K8's Hopper code (the vits window's, the first stream
+    step's and vitg's mm0/mm1 K5 shapes, K8's multi-crop and 32 x 1370),
+    each arm against its twin;
   * ``host_sync``: a steady ``StreamingDepth.submit`` with the device held
     by ``torch.cuda._sleep`` (~50 ms, or three times an idle submit's host
     time if longer) returns in less host time than the sleep (vits; vitl's
@@ -173,15 +173,17 @@ lines carry the old kernel's time (``old_ms``), bit-exact with the twin
 and with itself over 30 repeats.
 K5 in bf16 runs the Hopper code of csrc/tiny_seq_sm90.cuh (T >= 2: TMA
 boxes of a (sequence, head group) item into a ring of two stages, both
-products on mma.sync; T = 1: a warp per 256 columns of a position), K8 in
+products on mma.sync, at head width 192 a warp a 64-column slab of the
+output; T = 1: a warp per 256 columns of a position), K8 in
 bf16 at head width 64 that of csrc/segment_sm90.cuh (K1's TMA/wgmma loop
 over a host work table of query-tile passes): their lines carry the old
 kernel's time on the same values (``old_ms``, the largest |new - old|
 beside it; K8 at 32 x 1370 with K1's time too), K5's T = 1 lines an empty
 kernel's held time on the same grid (``floor_ms``); each repeats bit for
 bit over 30 calls, the fp32 cases stay on the old kernels, every bf16 K5
-launch of phases ``kernels``, ``stream`` (step 0), ``vits_window`` and
-``fused_stream`` and every bf16 K8 launch of ``kernels`` and
+launch of phases ``kernels``, ``stream`` (step 0), ``vits_window``,
+``vitg_window``, ``rope``, ``fused_stream`` and ``apps`` and every bf16
+K8 launch of ``kernels`` and
 ``nested_block`` is asserted on "sm90" (``tiny_seq_kernel`` /
 ``segment_kernel.launches_by_loop``), and phase ``probes`` runs their
 design steps (``probes.bench_short_attn_sm90``) against their twins.
@@ -249,7 +251,8 @@ PER_VITS_WINDOW = {**ZERO, "K1": 12, "K2": 28, "K3": 1, "K5": 6}
 PER_FUSED_WINDOW = {**PER_WINDOW, "K1": 0, "K7": 24, "K10": 4}
 # vitg launches a window: K1 its 40 blocks (24 heads of 64); K2 80 block
 # norms + 4 tap norms + 3 a motion module at C 1536 (mm0/mm1: K4's gate
-# stops at 1024, so K5 takes their attention sub-blocks, head width 192);
+# stops at 1024, so K5 takes their attention sub-blocks, head width 192, on
+# its Hopper code);
 # K3 the whole blocks of mm2/mm3 (C 384, 8 heads of 48)
 PER_VITG_WINDOW = {**ZERO, "K1": 40, "K2": 90, "K3": 2, "K5": 4}
 # vitl with RoPE: the JAX gates keep K3, K4 and K6 to APE, so K5 takes all
@@ -490,28 +493,15 @@ def temporal_by_loop_ok(counts) -> bool:
         "K4": {"sm90": counts["K4"], "sm80": 0}}
 
 
-def k5_k8_by_loop_ok(counts, k5_loops=None) -> bool:
+def k5_k8_by_loop_ok(counts) -> bool:
     """Every K5 and K8 launch since the counters were reset (bf16 on every
-    path) ran the Hopper code; ``k5_loops``: K5's launches by loop where
-    ``tiny_seq_kernel.loop_of`` sends a shape elsewhere (vitg's head width
-    192)."""
+    path, vitg's head width 192 included) ran the Hopper code."""
     from vda_tpu_torch.ops import segment_kernel, tiny_seq_kernel
 
-    want = {"sm90": counts["K5"], "sm80": 0} if k5_loops is None \
-        else {"sm90": 0, "sm80": 0, **k5_loops}
-    return (tiny_seq_kernel.launches_by_loop == want
+    return (tiny_seq_kernel.launches_by_loop == {"sm90": counts["K5"],
+                                                 "sm80": 0}
             and segment_kernel.launches_by_loop == {"sm90": counts["K8"],
                                                     "sm80": 0})
-
-
-def vitg_k5_loops(n_windows: int = 1) -> dict:
-    """K5's launches by loop in ``n_windows`` vitg windows: its 4 a window
-    at (1369 | 361, 32, 1536), all on the code the C entry point reports
-    for head width 192."""
-    from vda_tpu_torch.ops import tiny_seq_kernel as k5
-
-    return {k5.loop_of(torch.bfloat16, 32, 1536, 8):
-            PER_VITG_WINDOW["K5"] * n_windows}
 
 
 def random_temporal_block(c: int, g):
@@ -728,15 +718,15 @@ def phase_kernels(model):
     # same grid (floor_ms); repeated bit for bit; fp32 on the old kernel
     from vda_tpu_torch.probes import bench_short_attn_sm90 as bsa
 
-    def k5_case(bd, t, c, dtype, heads=8, loop=None):
-        """``loop``: the code the shape must run (default: "sm90" in bf16,
-        else "sm80")."""
+    def k5_case(bd, t, c, dtype, heads=8):
+        """K5 at (bd, t, c) with ``heads`` heads: bf16 on "sm90", fp32 on
+        "sm80"."""
         qkv = torch.randn(bd, t, 3 * c, device="cuda", generator=g).to(dtype)
         q, k, v = qkv.split(c, dim=-1)
         dh = c // heads
         qh, kh, vh = (x.reshape(bd, t, heads, dh).transpose(1, 2)
                       for x in (q, k, v))
-        loop = loop or ("sm90" if dtype == bf else "sm80")
+        loop = "sm90" if dtype == bf else "sm80"
         if k5.loop_of(dtype, t, c, heads) != loop:
             raise AssertionError(f"K5 at {(bd, t, c)} {dtype} is not on the "
                                  f"{loop} code")
@@ -779,10 +769,11 @@ def phase_kernels(model):
                   (1369, 32, 1024), (361, 32, 1024), (1369, 32, 256),
                   (5476, 32, 256)):
         k5_case(*shape, bf)
-    # vitg's mm0 and mm1 (head width 192) on the code the C entry point
-    # reports for them
+    # vitg's mm0 and mm1 (head width 192: a unit a 64-column slab of a
+    # head), then a tp=2 rank's mm1 (4 heads of 192), on the Hopper code
     for shape in ((1369, 32, 1536), (361, 32, 1536)):
-        k5_case(*shape, bf, loop=k5.loop_of(bf, 32, 1536, 8))
+        k5_case(*shape, bf)
+    k5_case(361, 32, 768, bf, heads=4)
     k5_case(37, 7, 256, torch.float32)  # ragged T, fp32
 
     # K6 at the shapes of a streaming step with ctx_kernel (vitl, 31 rows:
@@ -1731,13 +1722,14 @@ def phase_vits_window(frames):
 def phase_vitg_window(frames):
     """One seeded vitg 1x32x518x518 bf16 window (``load_model_params("vitg",
     random_init=True)``, cast once) with the kernels against the all-plain
-    forward (bench.py's test): launches and the loop of each asserted, K5
-    on the loop ``loop_of`` reports at head width 192; window and plain ms,
+    forward (bench.py's test): launches and the loop of each asserted (K5's
+    4 at head width 192 on "sm90", none on "sm80"); window and plain ms,
     peak memory of each.  The model is freed at the end: the plain K1 twin
     at 24 heads alone holds ~5.8 GB of fp32 scores a call.  Returns the
     launches of the forward."""
     import vda_tpu_torch as vt
     from vda_tpu_torch import ops
+    from vda_tpu_torch.ops import tiny_seq_kernel as k5
     from vda_tpu_torch.utils.transform import preprocess_frames
 
     torch.cuda.synchronize()
@@ -1757,14 +1749,14 @@ def phase_vitg_window(frames):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    k5_loops = vitg_k5_loops()
+    k5_loops = dict(k5.launches_by_loop)
     if counts != PER_VITG_WINDOW or not by_loop_ok(counts) \
             or not temporal_by_loop_ok(counts) \
-            or not k5_k8_by_loop_ok(counts, k5_loops):
+            or not k5_k8_by_loop_ok(counts):
         raise AssertionError(f"vitg launches {counts} != {PER_VITG_WINDOW}, "
                              "or a K1 launch missed the Hopper loop, or a K3 "
-                             "launch the Hopper chain, or K5's launches "
-                             f"their loop {k5_loops}")
+                             "launch the Hopper chain, or a K5 launch the "
+                             f"Hopper code ({k5_loops})")
     window_ms = time_ms(lambda: vt.forward(model, x), reps=3)
     plain_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
                        reps=1)
@@ -1814,17 +1806,16 @@ def phase_rope(frames):
     got = vt.forward(model, x)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    # K5 at mm0/mm1 (C 1024, 8 heads of 128) and mm2/mm3 (C 256, of 32)
-    k5_loops = {"sm90": 0, "sm80": 0}
-    for c in (1024, 1024, 256, 256):
-        k5_loops[k5.loop_of(torch.bfloat16, 32, c, 8)] += 2
+    # K5 at mm0/mm1 (C 1024, 8 heads of 128) and mm2/mm3 (C 256, of 32),
+    # all on the Hopper code
+    k5_loops = dict(k5.launches_by_loop)
     if counts != PER_ROPE_WINDOW or not by_loop_ok(counts) \
             or not temporal_by_loop_ok(counts) \
-            or not k5_k8_by_loop_ok(counts, k5_loops):
+            or not k5_k8_by_loop_ok(counts):
         raise AssertionError(f"RoPE window launches {counts} != "
                              f"{PER_ROPE_WINDOW}, or a K1 launch missed the "
-                             "Hopper loop, or K5's launches their loops "
-                             f"{k5_loops}")
+                             "Hopper loop, or a K5 launch the Hopper code "
+                             f"({k5_loops})")
     total = dict(counts)
     window_ms = time_ms(lambda: vt.forward(model, x), reps=3)
     plain_ms = time_ms(lambda: vt.forward(model, x, attn_impl="plain"),
@@ -2501,9 +2492,8 @@ def phase_apps():
             depths, wall, counts, _ = call(run.main, [
                 "--input_video", video, "--output_dir",
                 os.path.join(work, name), "--input_size", str(size)] + argv)
-            k5_loops = vitg_k5_loops(n_windows) if name == "vitg" else None
             loops_ok = (by_loop_ok(counts) and temporal_by_loop_ok(counts)
-                        and k5_k8_by_loop_ok(counts, k5_loops))
+                        and k5_k8_by_loop_ok(counts))
             model = loaded.pop()
             direct, _ = vt.infer_video_depth(model, seen, fps,
                                              input_size=size, **kw)

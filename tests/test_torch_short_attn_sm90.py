@@ -18,8 +18,9 @@ the key tiles the kernel walks (64 or 128 rows over the span, or one at
 each short segment's start) covering each segment's keys exactly once.
 
 K5's bf16 twin is held to ``pallas_attention.tiny_seq_attention`` in
-interpret mode (tests/conftest.py) at T 1 and 32 and head widths 8, 24 and
-128 (C 64, 192, 1024; 8 heads), within one bf16 ulp at the output's scale
+interpret mode (tests/conftest.py) at T 1 and 32 and head widths 8, 24, 128
+and 192 (C 64, 192, 1024, 1536; 8 heads), within one bf16 ulp at the
+output's scale
 (``_ulp_of_scale``: 2^-7 of the binade of max |ref|): the two round at the
 same points, but both round their output to bf16 after sums taken in
 another order, so one rounding may flip by an ulp; an infinite value
@@ -155,17 +156,19 @@ def fake_library(monkeypatch):
 
 
 # (T, C, heads, loop in bf16): the vits window's three shapes and the vitl
-# stream's first step's four, vitb's widths, T 2 .. 64, and what the Hopper
-# code refuses (head widths over 128 or off its instantiations at T >= 2,
-# 16 heads of 4, C over 2048 at T = 1)
+# stream's first step's four, vitb's widths, T 2 .. 64, vitg's mm0/mm1
+# (head width 192) at T 32 and 64 and a tp=2 rank's (4 heads of 192), and
+# what the Hopper code refuses (head widths off its instantiations at T >=
+# 2: 1024, 256, 160, 112, 10; 16 heads of 4, C over 2048 at T = 1)
 K5_LOOP_CASES = [
     (32, 64, 8, "sm90"), (32, 192, 8, "sm90"), (1, 1024, 8, "sm90"),
     (1, 256, 8, "sm90"), (32, 128, 8, "sm90"), (32, 384, 8, "sm90"),
     (2, 64, 8, "sm90"), (33, 256, 8, "sm90"), (64, 1024, 8, "sm90"),
     (64, 192, 8, "sm90"), (1, 192, 8, "sm90"), (1, 1536, 8, "sm90"),
-    (32, 1536, 8, "sm80"), (32, 1024, 1, "sm80"), (7, 80, 2, "sm80"),
-    (1, 4096, 8, "sm80"), (32, 64, 16, "sm80"), (32, 24, 3, "sm80"),
-    (64, 896, 8, "sm80"),
+    (32, 1536, 8, "sm90"), (64, 1536, 8, "sm90"), (32, 768, 4, "sm90"),
+    (32, 1024, 1, "sm80"), (7, 80, 2, "sm80"), (32, 2048, 8, "sm80"),
+    (32, 1280, 8, "sm80"), (1, 4096, 8, "sm80"), (32, 64, 16, "sm80"),
+    (32, 24, 3, "sm80"), (64, 896, 8, "sm80"),
 ]
 
 
@@ -182,10 +185,12 @@ def test_k5_loop_of_is_the_c_condition(fake_library, dtype, t, c, heads,
 def test_k5_takes_is_the_layout_that_fits():
     """The translated rule refuses exactly the mma path's items whose
     stages and output tiles outgrow a block's shared memory (dh 112: 7
-    boxes an item at T 64) and takes vits's and vitl's."""
+    boxes an item at T 64) and takes vits's, vitl's and vitg's (head width
+    192: 3 boxes an item, 197,648 bytes at T 64)."""
     takes = _k5_takes()
     assert takes(64, 896, 8) is False and takes(32, 896, 8) is False
     assert takes(64, 1024, 8) and takes(32, 192, 8) and takes(1, 24, 1)
+    assert takes(32, 1536, 8) and takes(64, 1536, 8)
 
 
 @pytest.mark.parametrize("dtype", [BF, torch.float32])
@@ -385,7 +390,7 @@ def test_k8_work_table_packs_the_multi_crop_batch():
 @pytest.mark.parametrize("case,want", [
     ("vits_mm3", 0.0268), ("vits_mm2", 0.0067), ("vits_mm0", 0.0201),
     ("step0_mm0", 0.0033), ("step0_mm1", 0.0009), ("step0_mm2", 0.0008),
-    ("step0_mm3", 0.0033)])
+    ("step0_mm3", 0.0033), ("vitg_mm0", 0.1607), ("vitg_mm1", 0.0424)])
 def test_k5_bounds(case, want):
     ms, by = bsa.bound_ms("K5", bsa.K5_SHAPES[case])
     assert by == "bytes" and ms == pytest.approx(want, abs=5e-5)
@@ -420,7 +425,7 @@ def _pallas_vs_twin(bd, t, dh, plant=False):
 
 
 @pytest.mark.parametrize("t", [1, 32])
-@pytest.mark.parametrize("dh", [8, 24, 128])
+@pytest.mark.parametrize("dh", [8, 24, 128, 192])
 def test_k5_bf16_twin_matches_pallas(t, dh):
     ref, got = _pallas_vs_twin(16, t, dh)
     assert np.isfinite(got).all()

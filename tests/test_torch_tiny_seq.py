@@ -39,7 +39,8 @@ def _t(a):
 
 
 @pytest.mark.parametrize("t", [1, 7, 32, 64])
-@pytest.mark.parametrize("dh,heads", [(8, 8), (24, 8), (128, 2)])
+@pytest.mark.parametrize("dh,heads", [(8, 8), (24, 8), (128, 2), (192, 8),
+                                      (192, 4)])
 def test_k5_tiny_seq_attention(t, dh, heads):
     c = heads * dh
     r = np.random.default_rng(t * 1000 + dh)

@@ -12,9 +12,9 @@
 // (4 T^2 C a sequence, ~16 operations a byte at T = 32 and dh = 8).
 //
 // Two codes, chosen by (T, C, heads, dtype) alone (vda_tiny_seq_loop):
-//  * 90: bf16 at the shapes tiny_seq_sm90.cuh takes (every main path): its
-//    TMA ring and tensor-core products (T >= 2), a warp per 256 columns of
-//    a position (T = 1);
+//  * 90: bf16 at the shapes tiny_seq_sm90.cuh takes (every main path, head
+//    widths 8-128 and 192): its TMA ring and tensor-core products (T >= 2),
+//    a warp per 256 columns of a position (T = 1);
 //  * 80: fp32 and the rest: the kernel below, in which one
 //    block owns one sequence and a group of heads, copies that group's columns
 // of the sequence into shared memory once (16-byte coalesced loads, turned

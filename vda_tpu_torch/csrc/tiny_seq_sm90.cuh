@@ -1,6 +1,7 @@
 // K5 on Hopper (sm_90a): softmax attention inside each short sequence, per
-// head, in bf16 (tiny_seq_attention.cu's vda_tiny_seq_loop says which
-// shapes; fp32 and the rest keep that file's kernel).
+// head, in bf16 at head widths 8-128 and 192 (tiny_seq_attention.cu's
+// vda_tiny_seq_loop says which shapes; fp32 and the rest keep that file's
+// kernel).
 //
 // Replaces vda_tpu/ops/pallas_attention.py tiny_seq_attention
 // (_tiny_seq_kernel).  q, k and v are (BD, T, C), element (b, t, col) at
@@ -19,7 +20,7 @@
 //   * T >= 2 (mma path).  A persistent grid of 8-warp blocks walks work
 //     items, an item one sequence and one head group: the fewest heads whose
 //     columns fill whole 64-column boxes (8 heads at dh 8 and 24, 2 at 32,
-//     1 at 64 and 128).  One thread copies an item's q, k and v by TMA
+//     1 at 64, 128 and 192).  One thread copies an item's q, k and v by TMA
 //     (3-D maps over (columns, T, BD) with the caller's strides, boxes of
 //     64 columns by T rows in the 128-byte swizzle: a fused projection's
 //     rows and separate tensors alike, 3 requests an item at the vits
@@ -27,7 +28,9 @@
 //     stages on an mbarrier each: the next item's bytes are in flight
 //     while this one computes.  bf16 stays bf16
 //     in shared memory.  Blocks of 8 warps; a warp takes a (head, 16 query
-//     rows) unit: S = q k^T by mma.sync m16n8k16 (m16n8k8 for the last 8
+//     rows) unit, at dh 192 a (head, 64 output columns, 16 query rows) one
+//     (a whole head's unit left 6 of 8 warps idle at T 32 and held 96 sums
+//     a lane): S = q k^T by mma.sync m16n8k16 (m16n8k8 for the last 8
 //     columns of dh 8, 24, ...), operands by ldmatrix from the swizzled
 //     tiles (no bank conflicts), fp32 sums; the softmax in registers, lean:
 //     the arithmetic, not the bytes, bounds this loop at T = 32, so its exp
@@ -131,7 +134,16 @@ __host__ __device__ inline Layout layout(int t, int gw) {
 // The mma path's head widths (the kernels instantiated below).
 __host__ __device__ constexpr bool mma_width(int dh) {
   return dh == 8 || dh == 16 || dh == 24 || dh == 32 || dh == 48 ||
-         dh == 64 || dh == 96 || dh == 128;
+         dh == 64 || dh == 96 || dh == 128 || dh == 192;
+}
+
+// Output columns of a warp's unit: the whole head up to 128 columns; at
+// 192 a 64-column slab (one box), so an item of one head at T 32 is 2 row
+// tiles x 3 slabs, 6 of a block's 8 warps, each recomputing the head's
+// 16 x T scores (a warp a whole head, 2 warps an item, was 1.32x slower at
+// vitg's mm0, slabs of 96 1.16x: PERF.md).
+__host__ __device__ constexpr int out_width(int dh) {
+  return dh == 192 ? kBox : dh;
 }
 
 // The shapes the Hopper code takes, in bf16: T >= 2 on the mma path (T <=
@@ -222,12 +234,16 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 
 // One unit of an item: head hl of the group (its first chunk c0), query
 // rows 16 mt .. 16 mt + 15, against the t keys of the tiles at qs, ks and
-// vs (nb boxes of `box` bytes each); O / z into the output tile at os.
-template <int DH, int TP>
+// vs (nb boxes of `box` bytes each); O / z of the head's OW output columns
+// from chunk c0 + o0 on into the output tile at os.  The scores and P take
+// the whole head whatever OW is, in one order, so every slab of a head
+// divides by the same z.
+template <int DH, int TP, int OW>
 __device__ __forceinline__ void unit(uint32_t qs, uint32_t ks, uint32_t vs,
-                                     uint32_t os, int box, int c0, int mt,
-                                     int t, float scale, int lane) {
+                                     uint32_t os, int box, int c0, int o0,
+                                     int mt, int t, float scale, int lane) {
   constexpr int NCH = DH / 8;  // 16-byte chunks of a head row
+  constexpr int NO = OW / 8;   // 16-byte chunks of the unit's output
   constexpr int NT = TP / 8;   // n-tiles of 8 keys
   constexpr int KS = TP / 16;  // k-steps of 16 keys
   const int g = lane / 4, tq = lane % 4;
@@ -309,10 +325,11 @@ __device__ __forceinline__ void unit(uint32_t qs, uint32_t ks, uint32_t vs,
     if (16 * kk < t) mma16(zs, pf[kk], kOnes, kOnes);
   const float z[2] = {zs[0], zs[2]};
 
-  // O (16 x DH) = P V, V's rows read transposed by ldmatrix
-  float o[NCH][4];
+  // O (16 x OW) = P V, V's rows read transposed by ldmatrix
+  const int v0 = c0 + o0;  // the first output chunk
+  float o[NO][4];
 #pragma unroll
-  for (int jd = 0; jd < NCH; ++jd)
+  for (int jd = 0; jd < NO; ++jd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[jd][e] = 0.f;
 #pragma unroll
@@ -320,16 +337,16 @@ __device__ __forceinline__ void unit(uint32_t qs, uint32_t ks, uint32_t vs,
     if (16 * kk >= t) continue;  // P is 0 there
     const int key = 16 * kk + (lane & 15);
 #pragma unroll
-    for (int jd = 0; jd + 1 < NCH; jd += 2) {
+    for (int jd = 0; jd + 1 < NO; jd += 2) {
       uint32_t b[4];
-      ldsm_x4_t(b, vs + chunk_off(key, c0 + jd + (lane >> 4), box));
+      ldsm_x4_t(b, vs + chunk_off(key, v0 + jd + (lane >> 4), box));
       mma16(o[jd], pf[kk], b[0], b[1]);
       mma16(o[jd + 1], pf[kk], b[2], b[3]);
     }
-    if constexpr (NCH % 2 == 1) {
+    if constexpr (NO % 2 == 1) {
       uint32_t b[2];
-      ldsm_x2_t(b, vs + chunk_off(key, c0 + NCH - 1, box));
-      mma16(o[NCH - 1], pf[kk], b[0], b[1]);
+      ldsm_x2_t(b, vs + chunk_off(key, v0 + NO - 1, box));
+      mma16(o[NO - 1], pf[kk], b[0], b[1]);
     }
   }
 
@@ -347,9 +364,9 @@ __device__ __forceinline__ void unit(uint32_t qs, uint32_t ks, uint32_t vs,
       return fmaf(fmaf(-q1, z[r], x), rz, q1);
     };
 #pragma unroll
-    for (int jd = 0; jd < NCH; ++jd)
+    for (int jd = 0; jd < NO; ++jd)
       asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
-                       os + chunk_off(row, c0 + jd, box) + 4 * tq),
+                       os + chunk_off(row, v0 + jd, box) + 4 * tq),
                    "r"(pack2(div(o[jd][2 * r]), div(o[jd][2 * r + 1])))
                    : "memory");
   }
@@ -431,10 +448,12 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t qs = base + s * l.stage;
     const uint32_t ks = qs + l.nb * l.box, vs = ks + l.nb * l.box;
     const uint32_t os = base + kStages * l.stage + (k & 1) * l.out;
-    if (kCompute) {
-      for (int u = warp; u < G * (TP / 16); u += kWarps)
-        unit<DH, TP>(qs, ks, vs, os, l.box, (u / (TP / 16)) * (DH / 8),
-                     u % (TP / 16), t, scale, lane);
+    if (kCompute) {  // units (head, slab, row tile)
+      constexpr int OW = out_width(DH), MT = TP / 16, NS = DH / OW;
+      for (int u = warp; u < G * NS * MT; u += kWarps)
+        unit<DH, TP, OW>(qs, ks, vs, os, l.box, (u / (NS * MT)) * (DH / 8),
+                         (u % (NS * MT) / MT) * (OW / 8), u % MT, t, scale,
+                         lane);
     }
     __syncthreads();  // stage s read, the output tile written
     if (M == Mode::kFull || keep) {
@@ -629,7 +648,7 @@ cudaError_t launch_mma(const Args& a, cudaStream_t st) {
 
 template <int DH, Mode M>
 cudaError_t launch_dh(const Args& a, cudaStream_t st) {
-  if constexpr (M != Mode::kFull) {  // the parts: the vits window's T
+  if constexpr (M != Mode::kFull) {  // the parts: the windows' T
     if (padded_rows(a.t) != 32) return cudaErrorInvalidValue;
     return launch_mma<DH, 32, M>(a, st);
   } else {
@@ -696,7 +715,7 @@ cudaError_t launch_row(const Args& a, cudaStream_t st) {
 // The Hopper code at the operands of vda_tiny_seq_attention (bf16; the
 // caller checked the strides and alignment); refuses what takes() does not
 // take.  The parts run at the main paths' shapes only (T 32 at head widths
-// 8 and 24, T 1 at C 256 and 1024), kProducts on the mma path.
+// 8, 24 and 192, T 1 at C 256 and 1024), kProducts on the mma path.
 template <Mode M>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int bd, int t, int c, int heads, long long seq_stride,
@@ -724,6 +743,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   if (c / heads == 8) return launch_dh<8, M>(a, st);
   if (c / heads == 24) return launch_dh<24, M>(a, st);
+  if (c / heads == 192) return launch_dh<192, M>(a, st);
   if constexpr (M != Mode::kFull) {
     return cudaErrorInvalidValue;
   } else {

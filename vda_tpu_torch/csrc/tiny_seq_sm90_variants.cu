@@ -13,7 +13,8 @@
 //               only)
 //   4 floor     an empty kernel on 1's grid: the launch alone
 // (The steps that lost are deleted: blocks of 4 warps, the softmax a score
-// at a time, the accurate expf; their times are in PERF.md.)
+// at a time, the accurate expf; at head width 192 a warp a whole head and
+// slabs of 96 columns; their times are in PERF.md.)
 // `keep` is 0 from every caller: the steps that write nothing keep their
 // results alive on a branch no run takes.
 

@@ -5,8 +5,10 @@ Replaces ``vda_tpu/ops/pallas_attention.py`` ``tiny_seq_attention`` (its
 for every (sequence, head) of (BD, T, C) q/k/v with T <= 64 frames and head
 width ``dh = C / heads`` a multiple of 8.  The model reaches it wherever a
 motion module runs per attention sub-block and neither K3 nor K4 takes the
-block: the first streaming step (T = 1, every module) and the offline
-modules of odd widths (vits mm0 at C=192, mm2/mm3 at C=64).
+block: the first streaming step (T = 1, every module), the offline
+modules of odd widths (vits mm0 at C=192, mm2/mm3 at C=64; vitg mm0/mm1 at
+C=1536, 8 heads of 192) and every RoPE module; under tensor parallelism a
+rank runs it at its local heads (vitg's mm0/mm1: 4 heads of 192).
 
 What bounds it on the H100: bytes.  At the vits mm3 shape (5476, 32, 64) in
 bf16 it reads q, k, v and writes o, 4 * 5476 * 32 * 64 * 2 B = 90 MB, while
@@ -15,8 +17,10 @@ block-diagonal (512 x 512) score tile to fill the MXU.  The C entry point
 picks the device code by (T, C, heads, dtype) alone (``loop_of``, the C
 query ``vda_tiny_seq_loop``):
 
-* bf16 at the main paths' shapes (``csrc/tiny_seq_sm90.cuh``): for T >= 2
-  a persistent grid whose blocks take (sequence, head group) items, each
+* bf16 at the main paths' shapes (``csrc/tiny_seq_sm90.cuh``; head widths
+  8-128 and 192): for T >= 2 a persistent grid whose blocks take
+  (sequence, head group) items (at head width 192 a warp computes a
+  64-column slab of a head's output over the whole head's scores), each
   item's q, k and v brought by TMA (boxes of 64 columns by T rows, read in
   place through the caller's strides, so the fused projection is never
   split into copies) into a ring of two shared-memory stages, the next
@@ -25,8 +29,9 @@ query ``vda_tiny_seq_loop``):
   shared-memory tile in whole rows.  For T = 1 a warp a position, 16-byte
   loads, the one-key softmax computed per head (an infinite or NaN score
   gives NaN, as in JAX).  Its design steps: ``probes/bench_short_attn_sm90``.
-* fp32 and the shapes the Hopper code refuses (head widths over 128, head
-  groups that do not fill 64 columns): the kernel of
+* fp32 and the shapes the Hopper code refuses (at T >= 2 head widths off
+  its list 8, 16, 24, 32, 48, 64, 96, 128 and 192, or head groups that do
+  not fill 64 columns; at T = 1 C over 2048): the kernel of
   ``csrc/tiny_seq_attention.cu``, a block a sequence and a head group, the
   columns staged in shared memory as fp32, a warp a head and a lane a query
   row.
@@ -70,10 +75,12 @@ def loop_of(dtype, t: int, c: int, heads: int) -> str:
     return "sm90" if code == 90 else "sm80"
 
 
-def tiny_seq_attention_reference(q, k, v, heads: int, scale: float):
-    """Plain twin: q, k, v (BD, T, C) -> (BD, T, C) in q's dtype, with the
-    kernel's rounding (fp32 scores, bf16 exp in bf16, fp32 sum, deferred
-    normalisation)."""
+def tiny_seq_attention_reference(q, k, v, heads: int, scale: float,
+                                 out_dtype=None):
+    """Plain twin: q, k, v (BD, T, C) -> (BD, T, C) in ``out_dtype``
+    (default q's dtype; fp32 keeps the output before its last rounding),
+    with the kernel's rounding (fp32 scores, bf16 exp in bf16, fp32 sum,
+    deferred normalisation)."""
     bd, t, c = q.shape
     dh = c // heads
     qh, kh, vh = (x.reshape(bd, t, heads, dh).float() for x in (q, k, v))
@@ -85,7 +92,7 @@ def tiny_seq_attention_reference(q, k, v, heads: int, scale: float):
         e = torch.exp(s)
     z = e.sum(-1).transpose(1, 2)[..., None]  # (BD, T, heads, 1)
     o = torch.einsum("bhqk,bkhd->bqhd", e, vh) / z
-    return o.reshape(bd, t, c).to(q.dtype)
+    return o.reshape(bd, t, c).to(out_dtype or q.dtype)
 
 
 def _check(q, k, v, heads):

@@ -5,9 +5,10 @@ shapes on the card.
         [--kernels K5 K8] [--reps 20] [--rounds N]
 
 K5 (``tiny_seq_attention``) runs at the vits window's three shapes (BD, T,
-C) = (5476, 32, 64), (1369, 32, 64), (1369, 32, 192) and the vitl stream's
+C) = (5476, 32, 64), (1369, 32, 64), (1369, 32, 192), the vitl stream's
 first step's four, (1369, 1, 1024), (361, 1, 1024), (1369, 1, 256), (5476,
-1, 256), 8 heads; K8 (``segment_attention``) at DINOv2's multi-crop batch
+1, 256), and vitg's mm0 and mm1, (1369, 32, 1536), (361, 32, 1536) (head
+width 192), 8 heads; K8 (``segment_attention``) at DINOv2's multi-crop batch
 (64 segments of 257 rows and 256 of 50, 16 heads of 64) and at 32 segments
 of 1370 (K1's shape).  q, k and v are seeded bf16 column slices of one
 fused projection, as the model hands them over.  Each step runs through
@@ -55,11 +56,13 @@ from vda_tpu_torch.ops import _build
 from vda_tpu_torch.probes import budget, require_cuda, time_held_ms
 
 HEADS5, HEADS8, D8 = 8, 16, 64
-# name -> (BD, T, C) of K5's calls: the vits window, the stream's first step
+# name -> (BD, T, C) of K5's calls: the vits window, the stream's first
+# step, vitg's window
 K5_SHAPES = {"vits_mm3": (5476, 32, 64), "vits_mm2": (1369, 32, 64),
              "vits_mm0": (1369, 32, 192), "step0_mm0": (1369, 1, 1024),
              "step0_mm1": (361, 1, 1024), "step0_mm2": (1369, 1, 256),
-             "step0_mm3": (5476, 1, 256)}
+             "step0_mm3": (5476, 1, 256), "vitg_mm0": (1369, 32, 1536),
+             "vitg_mm1": (361, 32, 1536)}
 # name -> segment lengths of K8's calls: DINOv2's multi-crop batch (32
 # images of 2 global crops of 257 tokens and 8 local crops of 50), and one
 # long segment a sample (K1's window shape)

@@ -5,13 +5,15 @@ in another one, in turns.
     python vda_tpu_torch/probes/time_short_attn_paths.py --against DIR
         [--turns 2]
 
-Three paths, each on seeded random weights: one vits 1x32x518x518 bf16
+Four paths, each on seeded random weights: one vits 1x32x518x518 bf16
 window ``forward`` (K5 in three of its motion modules, 6 launches; CUDA
 events, mean of 3), the first ``StreamingDepth.submit`` of a vitl stream
 (K5 at T = 1, 8 launches; host clock around the call and a synchronize, a
-fresh stream each time, median of 5) and ``block_apply_nested`` on vitl's
+fresh stream each time, median of 5), ``block_apply_nested`` on vitl's
 first encoder block over DINOv2's multi-crop batch (K8, one launch; CUDA
-events, mean of 10).  ``--tree DIR`` imports ``vda_tpu_torch`` from DIR (a
+events, mean of 10) and one vitg 1x32x518x518 bf16 window ``forward``
+(``load_model_params("vitg", random_init=True)``, cast once; K5 at head
+width 192 in mm0/mm1, 4 launches; CUDA events, mean of 3).  ``--tree DIR`` imports ``vda_tpu_torch`` from DIR (a
 checkout unpacked by ``git archive``, which builds its own kernels into its
 own ``csrc/build``), so the same code times both sides; ``--against DIR``
 runs this file in a process per side in the order other, this, this,
@@ -90,6 +92,12 @@ def measure(tree: str) -> dict:
         blk = vitl.pretrained.blocks[0]
         out["nested_block_ms"] = events_ms(
             lambda: block_apply_nested(blk, x_list, cfg), 10)
+        del vitl, blk, x_list
+        _, vitg = vt.load_model_params("vitg", random_init=True)
+        vitg.requires_grad_(False)
+        x = preprocess_frames(torch.from_numpy(frames[None]).cuda(),
+                              (SIZE, SIZE), dtype=torch.bfloat16)
+        out["vitg_window_ms"] = events_ms(lambda: vt.forward(vitg, x), 3)
     return out
 
 
@@ -123,7 +131,7 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": tree, "median": {
             k: statistics.median(ln[k] for ln in lines)
             for k in ("vits_window_ms", "stream_first_step_ms",
-                      "nested_block_ms")}}), flush=True)
+                      "nested_block_ms", "vitg_window_ms")}}), flush=True)
     return 0
 
 
