@@ -1,0 +1,7 @@
+"""Steady steps' operations over wall time at the bf16 peak, in %."""
+
+from h100_bench import readers
+
+
+def read(rec):
+    return readers.mfu_pct(rec, "step_flops", "frames")
