@@ -97,3 +97,41 @@ def test_kernel_kind(name, kind):
 ])
 def test_busy_ms_is_the_union_of_intervals(intervals, ms):
     assert profiling.busy_ms(intervals) == pytest.approx(ms)
+
+
+def test_layers_from_device_spans():
+    spans = [{"name": n, "device_ms": v} for n, v in (
+        ("forward", 20.0), ("encoder", 8.0), ("head.stage", 6.0),
+        ("head.project_resize", 1.0), ("head.temporal_mm0", 1.0),
+        ("head.temporal_mm1", 1.0), ("head.temporal_mm2", 0.5),
+        ("head.temporal_mm3", 0.5), ("head.tail", 4.0),
+        ("head.output_tail", 1.5), ("head.output_tail", 1.5),
+        ("window.upload", None))] * 2
+    ms = profiling._layers(profiling._device_ms(spans, 2), "forward",
+                           "forward")
+    assert ms["forward"] == 20.0 and ms["encoder"] == 8.0
+    assert ms["head"] == 10.0 and ms["head.output_tail"] == 3.0
+    assert ms["head.rest"] == pytest.approx(10.0 - 7.0)
+
+
+def test_layer_times_keys_and_no_patching(monkeypatch):
+    """The JSON keys of the ``layers`` phase, from the port's own spans on
+    the CPU (no device time there: every layer reads 0), and no attribute
+    of the port is set."""
+    import inspect
+
+    import torch
+
+    import vda_tpu_torch as vt
+
+    assert "setattr" not in inspect.getsource(profiling)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    model = vt.init_random(vt.get_config("tiny"),
+                           torch.Generator().manual_seed(0),
+                           device="cpu").requires_grad_(False)
+    ms = profiling.layer_times(model, torch.rand(1, 4, 56, 56, 3), reps=1)
+    assert sorted(ms) == sorted(
+        ["encoder", "head", "head.project_resize", "head.temporal_mm0",
+         "head.temporal_mm1", "head.temporal_mm2", "head.temporal_mm3",
+         "head.output_tail", "head.rest", "forward", "forward.rest"])
+    assert set(ms.values()) == {0.0}

@@ -72,7 +72,7 @@ from vda_tpu_torch.models.vda import (
 from vda_tpu_torch.ops import stream_kernel as sk
 from vda_tpu_torch.ops.resize import resize_bilinear
 from vda_tpu_torch.parallel import mesh as tpm
-from vda_tpu_torch.utils import knobs
+from vda_tpu_torch.utils import knobs, trace
 from vda_tpu_torch.utils.transform import (
     compute_resize_hw,
     effective_input_size,
@@ -138,13 +138,20 @@ class _Upload:
         self.turn = 0
 
     def __call__(self, host: torch.Tensor) -> torch.Tensor:
+        with trace.span("stream.upload"):
+            if host.device.type == "cpu":  # not a tensor already on a card
+                trace.count("h2d_bytes", host.nbytes)
+            return self._copy(host)
+
+    def _copy(self, host: torch.Tensor) -> torch.Tensor:
         if self.device.type != "cuda" or host.device.type != "cpu":
             return host.to(self.device)
         slot, self.turn = self.slots[self.turn], self.turn ^ 1
         buf = None
         if slot is not None:
             buf, event = slot
-            event.synchronize()
+            with trace.span("stream.upload_wait"):
+                event.synchronize()
             if buf.shape != host.shape or buf.dtype != host.dtype:
                 buf = None
         if buf is None:
@@ -225,11 +232,13 @@ def _stream_step(model, frame_u8, buffers, scales, ctx_rows, net_hw, out_hw,
     x = preprocess_frames(frame_u8[None], net_hw, dtype=dtype)[None]
     feats = forward_features(model, x, attn_impl, fuse_proj)
     ctx = []
-    for i, buf in enumerate(buffers):
-        c = buf.index_select(1, ctx_rows).to(dtype)
-        if scales is not None:
-            c = c * scales[i].index_select(0, ctx_rows).to(dtype)[None, :, None]
-        ctx.append(c)
+    with trace.span("stream.context", device=x):
+        for i, buf in enumerate(buffers):
+            c = buf.index_select(1, ctx_rows).to(dtype)
+            if scales is not None:
+                c = c * scales[i].index_select(0, ctx_rows).to(dtype)[
+                    None, :, None]
+            ctx.append(c)
     if cache_kind == "kv":
         marker = ("ctx",) if ctx_kernel else ()
         ctx = [(ctx[2 * i], ctx[2 * i + 1]) + marker
@@ -262,11 +271,12 @@ def _stream_step_group(model, frames_u8, buffers, ctx_rows, held_at, net_hw,
         feats_j = [(t[j:j + 1], None if c is None else c[j:j + 1])
                    for t, c in feats]
         ctx = []
-        for i, buf in enumerate(buffers):
-            c = buf.index_select(1, ctx_rows[j]).to(dtype)
-            for pos, src in held_at[j]:
-                c[:, pos] = held[src][i][:, 0]
-            ctx.append(c)
+        with trace.span("stream.context", device=x):
+            for i, buf in enumerate(buffers):
+                c = buf.index_select(1, ctx_rows[j]).to(dtype)
+                for pos, src in held_at[j]:
+                    c[:, pos] = held[src][i][:, 0]
+                ctx.append(c)
         if cache_kind == "kv":
             ctx = [(ctx[2 * i], ctx[2 * i + 1]) for i in range(len(ctx) // 2)]
         stage_out, rows = dpt_head_temporal_stage(
@@ -328,7 +338,8 @@ def _stream_step_group_direct(model, frames_u8, buffers, pos_maps, valids,
             cached_hidden_state_list=cache, cache_kind="kv",
             kernels=kernels, ln_kernel=ln_kernel)
         stage_outs.append(stage_out)
-        _write_step(buffers, _leaves(rows, "kv"), write_pos[j])
+        with trace.span("stream.cache_write", device=x):
+            _write_step(buffers, _leaves(rows, "kv"), write_pos[j])
     batched = tuple(torch.cat([s[i] for s in stage_outs]) for i in range(3))
     depth = dpt_head_temporal_tail(model.head, batched, patch_hw,
                                    micro_batch_size=len(stage_outs))
@@ -473,6 +484,12 @@ class StreamingDepth:
         depth as an (H, W) fp32 tensor on the model's device.  The host does
         not wait for this frame's work to finish; reading the tensor
         does."""
+        with trace.span("stream.step", device=self.device,
+                        request=self.id + 1):
+            trace.count("frames", 1)
+            return self._submit(frame)
+
+    def _submit(self, frame) -> torch.Tensor:
         frame_u8 = self._upload_frame(torch.as_tensor(frame))
         step_id = self.id + 1
         if self.net_hw is None:
@@ -547,6 +564,12 @@ class StreamingDepth:
         ``ctx_kernel`` group, and an int8 cache, runs k ``submit`` calls, as
         JAX does, so K6 runs every step.  The stream must have had its
         first frame (``submit``)."""
+        with trace.span("stream.group", device=self.device,
+                        request=self.id + 1):
+            trace.count("frames", len(frames))
+            return self._submit_group(frames)
+
+    def _submit_group(self, frames) -> torch.Tensor:
         if self.net_hw is None:
             raise RuntimeError("initialize the stream with "
                                "submit(first_frame) before submit_group")
@@ -597,11 +620,12 @@ class StreamingDepth:
         self._commit([r[:, None] for r in rows], 0)
 
     def _commit(self, rows, write_pos: int) -> None:
-        if self.scales is None:
-            _write_step(self.buffers, rows, write_pos)
-        else:
-            _write_step_q8(self.buffers, self.scales, rows, write_pos,
-                           self.mesh)
+        with trace.span("stream.cache_write", device=self.device):
+            if self.scales is None:
+                _write_step(self.buffers, rows, write_pos)
+            else:
+                _write_step_q8(self.buffers, self.scales, rows, write_pos,
+                               self.mesh)
 
     def cache_bytes(self) -> int:
         """Device bytes the cache buffers (and scales) hold (this rank's

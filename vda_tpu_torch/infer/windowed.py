@@ -24,7 +24,7 @@ from vda_tpu_torch.infer.stitching import stitch_windows
 from vda_tpu_torch.models.vda import VideoDepthAnything, forward
 from vda_tpu_torch.ops.resize import resize_bilinear
 from vda_tpu_torch.parallel import mesh as tpm
-from vda_tpu_torch.utils import knobs
+from vda_tpu_torch.utils import knobs, trace
 from vda_tpu_torch.utils.transform import (
     compute_resize_hw,
     effective_input_size,
@@ -116,38 +116,49 @@ def infer_video_depth(
     axis, so every rank stitches the whole video; ``progress`` counts the
     windows fetched.  Without a mesh, the one the model was sharded over
     (``parallel/mesh.use_mesh``); one other than that raises."""
-    cfg = model.cfg
-    mesh = tpm.use_mesh(model, mesh)
-    device = next(model.parameters()).device
-    fuse_proj = knobs.fuse_proj(fuse_proj, attn_impl)
-    resize_kernel = knobs.resize_kernel(resize_kernel, attn_impl)
-    n_frames, frame_h, frame_w = frames.shape[:3]
-    size = effective_input_size(frame_h, frame_w, input_size)
-    net_hw = compute_resize_hw(frame_h, frame_w, size)
-    dtype = torch.float32 if fp32 else torch.bfloat16
+    with trace.span("video"):
+        trace.count("frames", frames.shape[0])
+        cfg = model.cfg
+        mesh = tpm.use_mesh(model, mesh)
+        device = next(model.parameters()).device
+        fuse_proj = knobs.fuse_proj(fuse_proj, attn_impl)
+        resize_kernel = knobs.resize_kernel(resize_kernel, attn_impl)
+        n_frames, frame_h, frame_w = frames.shape[:3]
+        size = effective_input_size(frame_h, frame_w, input_size)
+        net_hw = compute_resize_hw(frame_h, frame_w, size)
+        dtype = torch.float32 if fp32 else torch.bfloat16
 
-    idx = window_source_indices(n_frames)
-    n_windows = idx.shape[0]
-    wb = max(1, min(window_batch, n_windows))
-    dp, rank = (1, 0) if mesh is None else (mesh.dp, mesh.data_rank)
-    wb = -(-wb // dp) * dp  # the window batch fills the data axis
-    per = wb // dp
-    host_depths = []
-    for start in range(0, n_windows, wb):
-        batch_idx = idx[start:start + wb]
-        n_valid = batch_idx.shape[0]
-        if n_valid < wb:
-            batch_idx = np.concatenate(
-                [batch_idx, batch_idx[-1:].repeat(wb - n_valid, 0)])
-        mine = batch_idx[rank * per:(rank + 1) * per]
-        u8 = torch.from_numpy(frames[mine]).to(device)
-        d = _window_step(model, u8, net_hw, (frame_h, frame_w), dtype,
-                         attn_impl, micro_batch_size, fuse_proj,
-                         resize_kernel)
-        if dp > 1:
-            d = tpm.all_gather(d, mesh.data_group, 0)
-        host_depths.extend(d[:n_valid].flatten(0, 1).cpu().float().numpy())
-        if progress is not None:
-            progress(start + n_valid, n_windows)
-    aligned = stitch_windows(host_depths, metric=cfg.metric)
-    return np.stack(aligned[:n_frames], axis=0), target_fps
+        idx = window_source_indices(n_frames)
+        n_windows = idx.shape[0]
+        trace.count("windows", n_windows)
+        wb = max(1, min(window_batch, n_windows))
+        dp, rank = (1, 0) if mesh is None else (mesh.dp, mesh.data_rank)
+        wb = -(-wb // dp) * dp  # the window batch fills the data axis
+        per = wb // dp
+        host_depths = []
+        for start in range(0, n_windows, wb):
+            batch_idx = idx[start:start + wb]
+            n_valid = batch_idx.shape[0]
+            if n_valid < wb:
+                batch_idx = np.concatenate(
+                    [batch_idx, batch_idx[-1:].repeat(wb - n_valid, 0)])
+            mine = batch_idx[rank * per:(rank + 1) * per]
+            with trace.span("window.upload"):
+                u8 = torch.from_numpy(frames[mine]).to(device)
+                trace.count("h2d_bytes", u8.nbytes)
+            with trace.span("window.step", device=u8):
+                d = _window_step(model, u8, net_hw, (frame_h, frame_w), dtype,
+                                 attn_impl, micro_batch_size, fuse_proj,
+                                 resize_kernel)
+                if dp > 1:
+                    d = tpm.all_gather(d, mesh.data_group, 0)
+            trace.wait("window.wait", d)
+            with trace.span("window.fetch"):
+                d = d[:n_valid].flatten(0, 1)
+                trace.count("d2h_bytes", d.nbytes)
+                host_depths.extend(d.cpu().float().numpy())
+            if progress is not None:
+                progress(start + n_valid, n_windows)
+        with trace.span("video.stitch"):
+            aligned = stitch_windows(host_depths, metric=cfg.metric)
+        return np.stack(aligned[:n_frames], axis=0), target_fps

@@ -24,6 +24,9 @@ from vda_tpu_torch.models.temporal import TemporalModule, temporal_module_apply
 from vda_tpu_torch.ops.layers import Conv2d, ConvTranspose2d, cast_once, conv2d
 from vda_tpu_torch.ops.layers import conv_transpose_same_stride
 from vda_tpu_torch.ops.resize import resize_bilinear
+from vda_tpu_torch.utils import trace
+
+_MM_SPANS = tuple(f"head.temporal_mm{i}" for i in range(4))
 
 
 class ResidualConvUnit(nn.Module):
@@ -163,27 +166,30 @@ def dpt_head_temporal_stage(head: DPTHeadTemporal, features, patch_hw,
         cache = None
         if n_cache:
             cache = cached_hidden_state_list[i * n_cache:(i + 1) * n_cache]
-        y, rows = temporal_module_apply(mms[i], xt, cfg, cache,
-                                        want_kv=cache_kind == "kv",
-                                        need_caches=need_caches,
-                                        kernels=kernels, ln_kernel=ln_kernel,
-                                        mesh=mesh)
+        with trace.span(_MM_SPANS[i], device=x):
+            y, rows = temporal_module_apply(mms[i], xt, cfg, cache,
+                                            want_kv=cache_kind == "kv",
+                                            need_caches=need_caches,
+                                            kernels=kernels,
+                                            ln_kernel=ln_kernel, mesh=mesh)
         return y.reshape(x.shape), rows
 
-    layer_1, layer_2, layer_3, layer_4 = _project_and_resize(head, features,
-                                                             patch_hw)
-    layer_3, h0 = temporal(0, layer_3)
-    layer_4, h1 = temporal(1, layer_4)
-    l1 = conv2d(sc.layer1_rn, layer_1, padding=1)
-    l2 = conv2d(sc.layer2_rn, layer_2, padding=1)
-    l3 = conv2d(sc.layer3_rn, layer_3, padding=1)
-    l4 = conv2d(sc.layer4_rn, layer_4, padding=1)
-    path_4, h2 = temporal(2, _fusion(sc.refinenet4, l4,
-                                     size=tuple(l3.shape[1:3]),
-                                     resize_kernel=resize_kernel))
-    path_3, h3 = temporal(3, _fusion(sc.refinenet3, path_4, l3,
-                                     size=tuple(l2.shape[1:3]),
-                                     resize_kernel=resize_kernel))
+    with trace.span("head.stage", device=features[0][0]):
+        with trace.span("head.project_resize", device=features[0][0]):
+            layer_1, layer_2, layer_3, layer_4 = _project_and_resize(
+                head, features, patch_hw)
+        layer_3, h0 = temporal(0, layer_3)
+        layer_4, h1 = temporal(1, layer_4)
+        l1 = conv2d(sc.layer1_rn, layer_1, padding=1)
+        l2 = conv2d(sc.layer2_rn, layer_2, padding=1)
+        l3 = conv2d(sc.layer3_rn, layer_3, padding=1)
+        l4 = conv2d(sc.layer4_rn, layer_4, padding=1)
+        path_4, h2 = temporal(2, _fusion(sc.refinenet4, l4,
+                                         size=tuple(l3.shape[1:3]),
+                                         resize_kernel=resize_kernel))
+        path_3, h3 = temporal(3, _fusion(sc.refinenet3, path_4, l3,
+                                         size=tuple(l2.shape[1:3]),
+                                         resize_kernel=resize_kernel))
     return (path_3, l2, l1), h0 + h1 + h2 + h3
 
 
@@ -208,11 +214,13 @@ def dpt_head_temporal_tail(head: DPTHeadTemporal, stage_out, patch_hw,
     ph, pw = patch_hw
     out_hw = (ph * 14, pw * 14)
     out, i = [], 0
-    for n in tail_chunks(l1.shape[0], micro_batch_size):
-        out.append(_output_tail(head, path_3[i:i + n], l2[i:i + n],
-                                l1[i:i + n], out_hw, resize_kernel))
-        i += n
-    return torch.cat(out)
+    with trace.span("head.tail", device=l1):
+        for n in tail_chunks(l1.shape[0], micro_batch_size):
+            with trace.span("head.output_tail", device=l1):
+                out.append(_output_tail(head, path_3[i:i + n], l2[i:i + n],
+                                        l1[i:i + n], out_hw, resize_kernel))
+            i += n
+        return torch.cat(out)
 
 
 def dpt_head_temporal_apply(head: DPTHeadTemporal, features, patch_hw,

@@ -22,6 +22,7 @@ from vda_tpu_torch.models.dinov2 import DinoVisionTransformer, encode
 from vda_tpu_torch.models.dpt import DPTHeadTemporal, dpt_head_temporal_apply
 from vda_tpu_torch.ops.resize import resize_bilinear
 from vda_tpu_torch.parallel.mesh import model_mesh
+from vda_tpu_torch.utils import trace
 
 ATTN_IMPLS = ("auto", "xla", "plain")
 
@@ -70,10 +71,11 @@ def forward_features(model: VideoDepthAnything, x, attn_impl: str = "auto",
     ``dinov2.encode``."""
     b, t, h, w, c = x.shape
     kernels, ln_kernel = kernel_set(attn_impl, fuse_proj=fuse_proj)
-    return encode(model.pretrained, x.reshape(b * t, h, w, c),
-                  model.cfg.intermediate_layer_idx, kernels, fuse_proj,
-                  ln_kernel, remat=remat, drop_path_rate=drop_path_rate,
-                  generator=generator, mesh=model_mesh(model))
+    with trace.span("encoder", device=x):
+        return encode(model.pretrained, x.reshape(b * t, h, w, c),
+                      model.cfg.intermediate_layer_idx, kernels, fuse_proj,
+                      ln_kernel, remat=remat, drop_path_rate=drop_path_rate,
+                      generator=generator, mesh=model_mesh(model))
 
 
 def forward_depth(model: VideoDepthAnything, features, x_shape,

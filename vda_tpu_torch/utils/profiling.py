@@ -11,7 +11,8 @@ power limit, then three JSON lines:
   bf16 1x32x518x518 window ``forward``, by CUDA events recorded around every
   call, mean over ``reps`` forwards after a warm-up: the encoder, the tap
   projections and resize layers, each motion module, the output tail, and
-  by difference the rest of the head and of the forward;
+  by difference the rest of the head and of the forward (``head`` is the
+  head's stage and tail, as it always was here);
 - ``profile_window``: one window ``forward`` under ``torch.profiler``:
   device time and launches by kernel kind, the largest kernels, and the
   device's idle share (1 - union of kernel intervals / host wall time);
@@ -29,18 +30,21 @@ frames), once without and once with ``ctx_kernel``:
   over the steps after the twelfth, past eviction onset), by CUDA events:
   the encoder, the tap projections, each motion module, the output tail,
   the cache write, and by difference the rest of the head and the rest of
-  the step (preprocessing, context gather, final resize);
+  the step (upload, preprocessing, context gather, the resize and ReLU
+  after the head, the resize to the frame).  ``head`` is the head's stage
+  and tail, as in ``layers``: before the recorder it was all of
+  ``forward_depth`` here, its resize and ReLU included, which
+  ``step.rest`` now holds;
 - ``profile_stream``: those steady steps under ``torch.profiler``.
 
-The layer spans wrap module-level functions for the duration of the call
-and are removed after it; nothing is timed unless this tool runs.
+The layers are the device spans the port records while
+``utils/trace.recording()`` is open (the window's ``forward`` a span of
+this tool's own); nothing is timed outside this tool's recordings.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import itertools
 import json
 import subprocess
 import time
@@ -48,6 +52,8 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+
+from vda_tpu_torch.utils import trace
 
 # kind -> substrings of the kernel name; the first kind that matches wins
 KINDS = (
@@ -98,102 +104,74 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
-@contextlib.contextmanager
-def _patched(obj, name, new):
-    old = getattr(obj, name)
-    setattr(obj, name, new)
-    try:
-        yield
-    finally:
-        setattr(obj, name, old)
+# the head's layers in the JSON phases, each a span of utils/trace.py
+_HEAD_LAYERS = ("head.project_resize", "head.temporal_mm0",
+                "head.temporal_mm1", "head.temporal_mm2", "head.temporal_mm3",
+                "head.output_tail")
 
 
-def _timed(spans, fn, name_of):
-    """``fn`` recording a CUDA-event span (name, start, end) per call."""
-    def wrapped(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn(*args, **kwargs)
-        end.record()
-        spans.append((name_of(), start, end))
-        return out
-    return wrapped
-
-
-def _head_spans(stack, spans):
-    """Time the head's layers (``models/dpt.py``) while ``stack`` is open."""
-    from vda_tpu_torch.models import dpt
-
-    mm = itertools.count()  # motion modules run in order mm0..mm3
-    for name, label in (
-            ("_project_and_resize", lambda: "head.project_resize"),
-            ("temporal_module_apply",
-             lambda: f"head.temporal_mm{next(mm) % 4}"),
-            ("_output_tail", lambda: "head.output_tail")):
-        stack.enter_context(_patched(dpt, name, _timed(
-            spans, getattr(dpt, name), label)))
-
-
-def _mean_ms(spans, n: int) -> dict:
+def _device_ms(spans, n: int) -> dict:
+    """Device milliseconds of each span name, summed over ``spans`` and
+    divided by ``n``."""
     ms = defaultdict(float)
-    for name, start, end in spans:
-        ms[name] += start.elapsed_time(end) / n
-    ms["head.rest"] = ms["head"] - sum(
-        v for k, v in ms.items() if k.startswith("head."))
+    for s in spans:
+        if s["device_ms"] is not None:
+            ms[s["name"]] += s["device_ms"] / n
     return ms
 
 
+def _layers(ms: dict, outer: str, outer_key: str) -> dict:
+    """From ``_device_ms``: the encoder, the head and its layers, the
+    ``outer`` span (as ``outer_key``) and, by difference, the head's
+    rest."""
+    out = {"encoder": ms["encoder"],
+           "head": ms["head.stage"] + ms["head.tail"],
+           outer_key: ms[outer]}
+    out.update((k, ms[k]) for k in _HEAD_LAYERS)
+    out["head.rest"] = out["head"] - sum(ms[k] for k in _HEAD_LAYERS)
+    return out
+
+
 def layer_times(model, x, reps: int = 5, **kw) -> dict:
-    """Mean milliseconds a window ``forward(**kw)`` spends in each layer."""
+    """Mean milliseconds a window ``forward(**kw)`` spends in each layer,
+    from the spans of ``utils/trace.py``."""
     from vda_tpu_torch.models import vda
 
-    spans = []
-    with contextlib.ExitStack() as stack:
-        for name, label in (("encode", "encoder"),
-                            ("dpt_head_temporal_apply", "head")):
-            stack.enter_context(_patched(vda, name, _timed(
-                spans, getattr(vda, name), lambda label=label: label)))
-        _head_spans(stack, spans)
-        forward = _timed(spans, vda.forward, lambda: "forward")
-        forward(model, x, **kw)  # warm-up
-        torch.cuda.synchronize()
-        spans.clear()
+    vda.forward(model, x, **kw)  # warm-up
+    torch.cuda.synchronize()
+    with trace.recording() as rec:
         for _ in range(reps):
-            forward(model, x, **kw)
-        torch.cuda.synchronize()
-    ms = _mean_ms(spans, reps)
+            with trace.span("forward", device=x):
+                vda.forward(model, x, **kw)
+    ms = _layers(_device_ms(rec.snapshot()["spans"], reps), "forward",
+                 "forward")
     ms["forward.rest"] = ms["forward"] - ms["encoder"] - ms["head"]
-    return dict(ms)
+    return ms
 
 
 def stream_layer_times(model, frames, ctx_kernel: bool,
                        warm: int = 12, fuse_proj: bool = False) -> dict:
     """Mean milliseconds a steady ``StreamingDepth`` step (steps ``warm``
-    and later) spends in each layer."""
+    and later) spends in each layer, from the spans of ``utils/trace.py``;
+    ``step.rest`` is the rest of ``submit`` (the frame's upload,
+    preprocessing, context gather, the resize and ReLU after the head and
+    the resize to the frame)."""
     import vda_tpu_torch as vt
-    from vda_tpu_torch.infer import streaming
 
-    spans = []
-    with contextlib.ExitStack() as stack:
-        for name, label in (("forward_features", "encoder"),
-                            ("forward_depth", "head"),
-                            ("_stream_step", "step"),
-                            ("_write_step", "cache_write")):
-            stack.enter_context(_patched(streaming, name, _timed(
-                spans, getattr(streaming, name), lambda label=label: label)))
-        _head_spans(stack, spans)
-        stream = vt.StreamingDepth(model, ctx_kernel=ctx_kernel,
-                                   fuse_proj=fuse_proj)
-        for i, f in enumerate(frames):
-            if i == warm:
-                torch.cuda.synchronize()
-                spans.clear()
+    stream = vt.StreamingDepth(model, ctx_kernel=ctx_kernel,
+                               fuse_proj=fuse_proj)
+    for f in frames[:warm]:
+        stream.submit(f)
+    torch.cuda.synchronize()
+    with trace.recording() as rec:
+        for f in frames[warm:]:
             stream.submit(f)
-        torch.cuda.synchronize()
-    ms = _mean_ms(spans, len(frames) - warm)
-    ms["step.rest"] = ms["step"] - ms["encoder"] - ms["head"]
-    return dict(ms)
+    spans = _device_ms(rec.snapshot()["spans"], len(frames) - warm)
+    ms = _layers(spans, "stream.step", "step")
+    ms["cache_write"] = spans["stream.cache_write"]
+    ms["step.rest"] = (ms["step"] - ms["encoder"] - ms["head"]
+                       - ms["cache_write"])
+    return ms
 
 
 def device_profile(fn) -> dict:
