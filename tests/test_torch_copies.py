@@ -61,16 +61,31 @@ def test_window_source_indices_equal(n_frames):
     np.testing.assert_array_equal(twindows(n_frames), jwindows(n_frames))
 
 
-@pytest.mark.parametrize("metric", [False, True])
-def test_stitch_windows_equal(metric):
+@pytest.mark.parametrize("n_windows,hw,metric,views", [
+    (3, (6, 7), False, False), (3, (6, 7), True, False),
+    # frames above torch's grain size, so the in-place passes split over
+    # threads; views of one array, as the window fetch gives them, or
+    # arrays of their own
+    (3, (240, 320), False, True), (3, (240, 320), True, True),
+    (3, (240, 320), False, False),
+    (1, (240, 320), False, True),  # one window: nothing to align
+], ids=["False", "True", "240x320-False", "240x320-True",
+        "240x320-False-arrays", "one_window"])
+def test_stitch_windows_equal(n_windows, hw, metric, views):
     rng = np.random.default_rng(3)
-    depths = [rng.random((6, 7)).astype(np.float32) + 0.1
-              for _ in range(3 * tconfig.INFER_LEN)]
+    n = n_windows * tconfig.INFER_LEN
+    if views:
+        depths = list(rng.random((n,) + hw).astype(np.float32) + 0.1)
+    else:
+        depths = [rng.random(hw).astype(np.float32) + 0.1 for _ in range(n)]
     got = tstitch.stitch_windows(depths, metric=metric)
     ref = jstitch.stitch_windows(depths, metric=metric)
     assert len(got) == len(ref)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
+    # bit for bit, not only equal values
+    np.testing.assert_array_equal(np.asarray(got).view(np.uint32),
+                                  np.stack(ref).view(np.uint32))
 
 
 @pytest.mark.parametrize("builder", ["_linear_matrix", "_cubic_matrix"])

@@ -85,3 +85,63 @@ def test_window_batch_matches_jax_and_single_windows(setup, monkeypatch):
     assert got.shape == ref.shape == (50, 70, 90)
     assert rel_err(ref, got) < 1e-4
     assert rel_err(one, got) < 1e-4
+
+
+def test_stitch_reads_its_inputs_and_returns_one_array(setup, monkeypatch):
+    """The contract the benchmark's capture of ``windowed.stitch_windows``
+    relies on: one call a video with the host's per-frame window depths,
+    left as they were, and the video back as one fp32 C-contiguous array,
+    every window depth already fp32 C-contiguous (no frame converted)."""
+    from vda_tpu_torch.infer import windowed as tw
+    from vda_tpu_torch.utils import trace
+
+    _, _, model, frames = setup
+    calls = []
+    stitch = tw.stitch_windows
+
+    def checked(depth_list, **kw):
+        copies = [d.copy() for d in depth_list]
+        out = stitch(depth_list, **kw)
+        calls.append(all(np.array_equal(d, c, equal_nan=True)
+                         for d, c in zip(depth_list, copies)))
+        return out
+
+    monkeypatch.setattr(tw, "stitch_windows", checked)
+    with trace.recording() as rec:
+        got, _ = vt.infer_video_depth(model, frames, 24, input_size=56)
+    assert calls == [True]
+    assert got.shape == (40, 70, 90) and got.dtype == np.float32
+    assert got.flags.c_contiguous
+    spans = rec.snapshot()["spans"]
+    stitched = [s for s in spans if s["name"] == "video.stitch"]
+    assert [s["counters"] for s in stitched] == [
+        {"stitch_converted_frames": 0}]
+
+    # frames above torch's grain size, as views of one array a window (the
+    # layout of the fetch): the threaded passes write none of them
+    rng = np.random.default_rng(6)
+    depth_list = list(rng.random((3 * 32, 240, 320), dtype=np.float32))
+    copies = [d.copy() for d in depth_list]
+    stitch(depth_list)
+    for d, c in zip(depth_list, copies):
+        np.testing.assert_array_equal(d.view(np.uint32), c.view(np.uint32))
+
+
+def test_stitch_counts_and_converts_other_frames():
+    """A frame that is not fp32 C-contiguous is copied to one and counted;
+    the video is the stitch of those copies."""
+    from vda_tpu_torch.infer.stitching import stitch_windows
+    from vda_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(7)
+    base = [rng.random((20, 30), dtype=np.float32) + 0.1 for _ in range(64)]
+    mixed = list(base)
+    mixed[3] = base[3].astype(np.float64)
+    mixed[40] = np.asfortranarray(base[40])
+    mixed[45] = base[45].T.copy().T  # a transposed view: not C-contiguous
+    with trace.recording() as rec:
+        with trace.span("video.stitch"):
+            got = stitch_windows(mixed)
+    (span,) = rec.snapshot()["spans"]
+    assert span["counters"] == {"stitch_converted_frames": 3}
+    np.testing.assert_array_equal(got, stitch_windows(base))

@@ -5,7 +5,9 @@ device: every window's input is a direct gather of source frames
 (``window_source_indices``, copied), preprocessing and the forward run on
 the device, the final resize to the frame size runs in fp32, depths cross to
 the host in float16 (fp32 with ``fp32=True``), and the host stitches the
-windows (``stitching.stitch_windows``, copied).  ``window_batch`` runs that
+windows (``stitching.stitch_windows``: in place into one fp32 array on
+torch's intra-op threads, bit for bit with the JAX package's; its first
+N frames are returned without a further copy).  ``window_batch`` runs that
 many windows as the batch of one forward on the device, each window its own
 sequence of frames.  ``mesh`` (``parallel/mesh.make_mesh``) fans that batch
 out over the data axis and runs each rank's windows tensor-parallel over
@@ -66,17 +68,20 @@ def window_source_indices(n_frames: int) -> np.ndarray:
 def _window_step(model: VideoDepthAnything, frames_u8, net_hw, out_hw,
                  dtype, attn_impl: str, micro_batch_size: int,
                  fuse_proj: bool, resize_kernel: bool):
-    """(B, T, H, W, 3) uint8 windows on the device -> (B, T, outH, outW)
-    depths, fp32 if ``dtype`` is fp32 else float16."""
+    """(B, T, H, W, 3) uint8 windows on the device -> contiguous (B, T,
+    outH, outW) depths, fp32 if ``dtype`` is fp32 else float16."""
     x = preprocess_frames(frames_u8, net_hw, dtype=dtype)
     depth = forward(model, x, attn_impl=attn_impl,
                     micro_batch_size=micro_batch_size, fuse_proj=fuse_proj,
                     resize_kernel=resize_kernel)
     # final resize in fp32 (the reference casts before F.interpolate,
-    # video_depth.py:111-112), then a float16 transfer unless fp32
+    # video_depth.py:111-112), then a float16 transfer unless fp32; the
+    # resize's einsum leaves each frame column-major, and the cast (or a
+    # copy) lays it out row-major on the device, so the host reads rows
     d = resize_bilinear(depth[..., None].float(), out_hw, align_corners=True)
     d = d[..., 0]
-    return d if dtype == torch.float32 else d.to(torch.float16)
+    out = torch.float32 if dtype == torch.float32 else torch.float16
+    return d.to(out, memory_format=torch.contiguous_format)
 
 
 def infer_video_depth(
@@ -161,4 +166,6 @@ def infer_video_depth(
                 progress(start + n_valid, n_windows)
         with trace.span("video.stitch"):
             aligned = stitch_windows(host_depths, metric=cfg.metric)
-        return np.stack(aligned[:n_frames], axis=0), target_fps
+        # a view of the stitched array (a stitch swapped in that returns a
+        # list of frames is stacked)
+        return np.asarray(aligned[:n_frames]), target_fps

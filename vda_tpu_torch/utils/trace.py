@@ -38,7 +38,9 @@ Spans of the port (host spans unless marked "device"):
     forward's enqueue), ``window.wait`` (the host blocked until the device
     has run the step), ``window.fetch`` (the depths' copy to the host, the
     float16 -> float32 cast and the list extend; ``d2h_bytes``); then
-    ``video.stitch``.  The final ``np.stack`` is ``video``'s self time.
+    ``video.stitch`` (counter ``stitch_converted_frames``, the window
+    depths the stitch had to copy to fp32 C-contiguous first; 0 on this
+    path).
   * the model: ``encoder``, ``head.stage`` (in it ``head.project_resize``
     and ``head.temporal_mm0`` .. ``head.temporal_mm3``) and ``head.tail``
     (in it each ``head.output_tail`` chunk), all device.
