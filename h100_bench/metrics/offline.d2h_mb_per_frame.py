@@ -1,0 +1,7 @@
+"""The program's ``d2h_bytes`` counters, in MB a source frame."""
+
+from h100_bench import program_readers
+
+
+def read(rec):
+    return program_readers.mb_per_frame(rec, "d2h_bytes")

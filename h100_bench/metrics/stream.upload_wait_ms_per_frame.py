@@ -1,0 +1,8 @@
+"""Host ms of the program's ``stream.upload_wait`` spans (the wait for a
+staging buffer) over the frames submitted."""
+
+from h100_bench import program_readers
+
+
+def read(rec):
+    return program_readers.per_frame_ms(rec, "stream.upload_wait")

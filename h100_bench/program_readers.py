@@ -1,15 +1,16 @@
-"""The arithmetic of the program's own spans and counters: what
-``vda_tpu_torch/utils/trace.py`` records inside the window and stream
-drivers while a recording is open around a cell's window, kept in the
-run's record under ``"program"`` (a snapshot: ``{"spans": [...]}``, each
-span a dict with ``name``, ``id``, ``parent``, ``start_ns``, ``end_ns``,
-``counters`` and ``device_ms``), beside the driver's ``wall_s``.
+"""The arithmetic of the program's own spans and counters, shared by the
+readers of ``metrics/`` that read them: what ``vda_tpu_torch/utils/trace.py``
+records inside the window and stream drivers while a traced run holds a
+recording open around the cell's window (``session.run_cell``), kept in
+the run's record under ``"program"`` (a snapshot: ``{"spans": [...]}``,
+each span a dict with ``name``, ``id``, ``parent``, ``start_ns``,
+``end_ns``, ``counters`` and ``device_ms``), beside the driver's
+``wall_s``.
 
-Each reader takes the record and returns its metric, or None where the
-record has no ``program`` (the run did not record, or the program has no
-recorder) or nothing to read.  ``METRICS`` names them by cell kind; a
-cell's metric is its prefix (``offline``, ``clips``, ``stream``) and the
-name.  Self times are computed here, not taken from the program.
+Each function takes the record and returns its metric, or None where the
+record's ``program`` is None (an untraced run, or a program without the
+recorder) or has nothing to read.  Self times are computed here, not
+taken from the program.
 """
 
 from __future__ import annotations
@@ -138,49 +139,3 @@ def device_ms_per_frame(rec, name):
     if not ms or None in ms or not _frames(spans):
         return None
     return sum(ms) / _frames(spans)
-
-
-# (name, unit, reader) by the driver of the cell
-METRICS = {
-    "offline": (
-        ("upload_ms_per_window", "ms",
-         lambda rec: per_window_ms(rec, "window.upload")),
-        ("wait_ms_per_window", "ms",
-         lambda rec: per_window_ms(rec, "window.wait")),
-        ("fetch_ms_per_window", "ms",
-         lambda rec: per_window_ms(rec, "window.fetch")),
-        ("driver_self_ms_per_window", "ms", driver_self_ms_per_window),
-        ("h2d_mb_per_frame", "MB/frame",
-         lambda rec: mb_per_frame(rec, "h2d_bytes")),
-        ("d2h_mb_per_frame", "MB/frame",
-         lambda rec: mb_per_frame(rec, "d2h_bytes")),
-        # what closes the window's residual (readers.driver_gap_ms): the
-        # step's enqueue against its device time, and the time outside
-        # the videos
-        ("step_host_ms_per_window", "ms",
-         lambda rec: per_window_ms(rec, "window.step")),
-        ("step_device_ms_per_window", "ms",
-         lambda rec: device_ms_per_window(rec, "window.step")),
-        ("outside_video_ms_per_window", "ms", outside_video_ms_per_window),
-    ),
-    "stream": (
-        ("upload_ms_per_frame", "ms/frame",
-         lambda rec: per_frame_ms(rec, "stream.upload")),
-        ("upload_wait_ms_per_frame", "ms/frame",
-         lambda rec: per_frame_ms(rec, "stream.upload_wait")),
-        ("enqueue_ms_per_frame", "ms/frame", enqueue_ms_per_frame),
-        ("context_ms_per_frame", "ms/frame",
-         lambda rec: device_ms_per_frame(rec, "stream.context")),
-    ),
-}
-
-
-def metrics(rec, driver: str, prefix: str) -> dict:
-    """Every metric of ``METRICS[driver]`` the record gives, as
-    ``{prefix.name: {"value", "unit"}}``."""
-    out = {}
-    for name, unit, read in METRICS[driver]:
-        value = read(rec)
-        if value is not None:
-            out[f"{prefix}.{name}"] = {"value": value, "unit": unit}
-    return out

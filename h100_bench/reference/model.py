@@ -3,7 +3,9 @@
 A straightforward float32 implementation of the published model
 (DepthAnything/Video-Depth-Anything: ``video_depth_anything/dinov2.py``,
 ``dpt.py``, ``dpt_temporal.py``, ``motion_module/``), NCHW as the original,
-over a state dict in the published key layout.  It imports torch and numpy
+over a state dict in the published key layout; the encoder's feed-forward
+is the GELU MLP or, where ``ffn_layer`` is "swiglufused" (vitg), DINOv2's
+SwiGLU (``dinov2_layers/swiglu_ffn.py``).  It imports torch and numpy
 and nothing of the program under test.  No hand-written kernel, no fused
 path, no cache layout of the program: linears are ``x @ W.T + b``,
 attention is ``softmax(q k^T / sqrt(d)) v`` computed in blocks of the batch
@@ -132,8 +134,13 @@ class Reference:
         o = self.attention(q, k, v, heads)
         x = x + self.linear(o, f"{b}.attn.proj") * self.sd[f"{b}.ls1.gamma"]
         h = self.layer_norm(x, f"{b}.norm2", 1e-6)
-        h = F.gelu(self.linear(h, f"{b}.mlp.fc1"))
-        return x + self.linear(h, f"{b}.mlp.fc2") * self.sd[f"{b}.ls2.gamma"]
+        if enc["ffn_layer"] == "mlp":
+            h = self.linear(F.gelu(self.linear(h, f"{b}.mlp.fc1")),
+                            f"{b}.mlp.fc2")
+        else:  # DINOv2 SwiGLUFFNFused
+            x1, x2 = self.linear(h, f"{b}.mlp.w12").chunk(2, dim=-1)
+            h = self.linear(F.silu(x1) * x2, f"{b}.mlp.w3")
+        return x + h * self.sd[f"{b}.ls2.gamma"]
 
     def encode(self, x) -> List[torch.Tensor]:
         """x (B, 3, H, W) normalised -> the four taps' patch tokens

@@ -3,7 +3,10 @@
 The keys and shapes are those of the published checkpoints
 (``video_depth_anything_<encoder>.pth``): ``pretrained.*`` for the DINOv2
 encoder and ``head.*`` for the temporal DPT head, the motion modules'
-sinusoidal ``pos_encoder.pe`` buffers included.  Every value is drawn from
+sinusoidal ``pos_encoder.pe`` buffers included.  An encoder whose
+``ffn_layer`` is "swiglufused" (vitg, of which VDA publishes no checkpoint)
+takes DINOv2's ``mlp.w12`` and ``mlp.w3`` where the GELU MLP takes
+``mlp.fc1`` and ``mlp.fc2``.  Every value is drawn from
 one ``torch.Generator`` on the given device in a single ``randn`` call, then
 scaled per tensor:
 
@@ -71,6 +74,20 @@ def _norm(out: List[Spec], key: str, c: int) -> None:
     out.append((f"{key}.bias", (c,), "shift", 0))
 
 
+def ffn_hidden(enc: dict) -> int:
+    """The hidden width of the encoder's feed-forward: ``d * mlp_ratio`` for
+    the GELU MLP (``ffn_layer`` "mlp"); for the SwiGLU of "swiglufused"
+    (DINOv2 ``SwiGLUFFNFused``: ``w3(silu(x1) * x2)`` with x1, x2 the
+    halves of ``w12(x)``) two thirds of it rounded up to a multiple of 8,
+    4096 at d 1536."""
+    hidden = int(enc["embed_dim"] * enc["mlp_ratio"])
+    if enc["ffn_layer"] == "mlp":
+        return hidden
+    if enc["ffn_layer"] == "swiglufused":
+        return (int(hidden * 2 / 3) + 7) // 8 * 8
+    raise ValueError(f"unknown ffn_layer {enc['ffn_layer']!r}")
+
+
 def specs(cfg: dict) -> List[Spec]:
     """Every tensor of the state dict: (key, shape, kind, fan-in), in a fixed
     order."""
@@ -84,7 +101,7 @@ def specs(cfg: dict) -> List[Spec]:
         ("pretrained.pos_embed", (1, side * side + 1, d), "pos", 0),
     ]
     _conv(out, "pretrained.patch_embed.proj", 3, d, p)
-    hidden = int(d * enc["mlp_ratio"])
+    hidden = ffn_hidden(enc)
     for i in range(enc["depth"]):
         b = f"pretrained.blocks.{i}"
         _norm(out, f"{b}.norm1", d)
@@ -92,8 +109,12 @@ def specs(cfg: dict) -> List[Spec]:
         _linear(out, f"{b}.attn.proj", d, d)
         out.append((f"{b}.ls1.gamma", (d,), "gamma", 0))
         _norm(out, f"{b}.norm2", d)
-        _linear(out, f"{b}.mlp.fc1", d, hidden)
-        _linear(out, f"{b}.mlp.fc2", hidden, d)
+        if enc["ffn_layer"] == "mlp":
+            _linear(out, f"{b}.mlp.fc1", d, hidden)
+            _linear(out, f"{b}.mlp.fc2", hidden, d)
+        else:
+            _linear(out, f"{b}.mlp.w12", d, 2 * hidden)
+            _linear(out, f"{b}.mlp.w3", hidden, d)
         out.append((f"{b}.ls2.gamma", (d,), "gamma", 0))
     _norm(out, "pretrained.norm", d)
     for i in range(4):

@@ -9,7 +9,9 @@ the cell uses (``setup_s``), measures for ``--seconds``, then checks what
 the timed path produced against the plain reference (``correct``).  With
 ``--trace 0`` the result's metrics are the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics, read from spans around the program's
-functions and from torch.profiler over a slice of the window.  The last
+functions, from the program's own recording of its spans and counters
+(open around the window in a traced run only) and from torch.profiler
+over a slice of the window.  The last
 line of standard output is the result as one JSON object; the numbers
 compared, each beside its limit, are the last lines of standard error and
 the result's last key.

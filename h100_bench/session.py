@@ -8,6 +8,7 @@ and the program broken underneath, to see ``correct`` come out false.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import math
 import time
@@ -16,6 +17,22 @@ from types import SimpleNamespace
 import torch
 
 from h100_bench import harness
+
+
+def _recording(trace: bool):
+    """In a traced run, the program's recording of its own spans and
+    counters (``vda_tpu_torch/utils/trace.py``), whose snapshot the run's
+    record keeps under ``"program"`` for the readers of
+    ``program_readers.py``; a program without the recorder, and every
+    untraced run, records nothing (yields None)."""
+    if trace:
+        try:
+            from vda_tpu_torch.utils import trace as program_trace
+        except ImportError:
+            pass
+        else:
+            return program_trace.recording()
+    return contextlib.nullcontext()
 
 
 def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool,
@@ -35,15 +52,19 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool,
     tracer.warm_profiler()
     dev.sync()
     setup_s = time.perf_counter() - t0
-    with tracer.installed(driver.SPANS):
+    with tracer.installed(driver.SPANS), _recording(trace) as rec:
         driver.window(ctx, state)
     tracer.slice_end()
     record = {"spans": tracer.resolve(), "cfg": cell.cfg,
               "traffic": cell.traffic, "peaks": harness.peaks(),
-              "profile": {}}
+              "profile": {},
+              "program": rec.snapshot() if rec is not None else None}
     if tracer.prof is not None:
+        annotations = {s[2] for s in driver.SPANS}
+        if record["program"]:
+            annotations |= {s["name"] for s in record["program"]["spans"]}
         record["profile"] = harness.summarize_profile(
-            tracer.prof, tracer.slice_wall, {s[2] for s in driver.SPANS})
+            tracer.prof, tracer.slice_wall, annotations)
     peak = torch.cuda.max_memory_allocated(dev.device) if dev.cuda else 0
     record.update(driver.record(ctx, state))
     driver.release(state)

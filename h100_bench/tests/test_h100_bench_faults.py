@@ -18,9 +18,10 @@ from h100_bench.tests import tiny_cells
 SEED = 2 ** 41 + 99
 
 
-def _run(name, **kw):
-    result, lines = session.run_cell(tiny_cells.cell(name), SEED, 1.0,
-                                     False, "cpu", time.perf_counter(), **kw)
+def _run(name, config="tiny", **kw):
+    result, lines = session.run_cell(tiny_cells.cell(name, config), SEED,
+                                     1.0, False, "cpu", time.perf_counter(),
+                                     **kw)
     assert len(lines) == len(result["checks"])
     return result
 
@@ -87,10 +88,31 @@ def test_stream_faults(monkeypatch, fault):
     assert result["correct"] == (fault == "none"), tiny_cells.dump(result)
 
 
+def _swapped_swiglu(blk, x, mesh=None, seq_shard=False):
+    """The program's SwiGLU with its halves swapped: ``w3(silu(x2) * x1)``."""
+    from vda_tpu_torch.models import dinov2
+
+    x1, x2 = dinov2.linear(blk.mlp.w12, x).chunk(2, dim=-1)
+    return dinov2._out(blk.mlp.w3, torch.nn.functional.silu(x2) * x1, mesh,
+                       seq_shard)
+
+
+@pytest.mark.parametrize("fault", ["none", "swiglu_swapped"])
 @pytest.mark.parametrize("name", ["vits.offline_480p", "vitl.stream_720p"])
-def test_control_fails_the_limits(name):
-    result = _run(name, control=True)
-    cell = tiny_cells.cell(name)
+def test_swiglu_faults(monkeypatch, name, fault):
+    from vda_tpu_torch.models import dinov2
+
+    if fault == "swiglu_swapped":
+        monkeypatch.setattr(dinov2, "_mlp", _swapped_swiglu)
+    result = _run(name, "tiny_swiglu")
+    assert result["correct"] == (fault == "none"), tiny_cells.dump(result)
+
+
+@pytest.mark.parametrize("config", tiny_cells.CONFIGS)
+@pytest.mark.parametrize("name", ["vits.offline_480p", "vitl.stream_720p"])
+def test_control_fails_the_limits(name, config):
+    result = _run(name, config, control=True)
+    cell = tiny_cells.cell(name, config)
     assert any(v > cell.limits[k] for k, v in result["control"].items())
 
 

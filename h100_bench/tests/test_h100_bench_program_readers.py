@@ -1,16 +1,32 @@
-"""The readers of the program's own spans and counters
-(``program_readers.py``) on synthetic records, and a traced run of the tiny
-cells on the CPU with the program's recorder open (``program_spans.py``),
-in which every metric the CPU can give is reported."""
+"""The readers of the program's own spans and counters (``metrics/`` over
+``program_readers.py``) on synthetic records, and traced runs of the tiny
+cells on the CPU, in which ``session.run_cell`` holds the program's
+recording open around the window and every metric the CPU can give is
+reported; an untraced run opens no recording."""
 
 import time
 
 import pytest
 
-from h100_bench import program_readers, program_spans, session
+from h100_bench import harness, session
 from h100_bench.tests import tiny_cells
 
 SEED = 2 ** 41 + 7
+WINDOW = ("upload_ms_per_window", "wait_ms_per_window",
+          "fetch_ms_per_window", "driver_self_ms_per_window",
+          "step_host_ms_per_window", "step_device_ms_per_window",
+          "outside_video_ms_per_window", "h2d_mb_per_frame",
+          "d2h_mb_per_frame")
+STREAM = ("upload_ms_per_frame", "upload_wait_ms_per_frame",
+          "enqueue_ms_per_frame", "context_ms_per_frame")
+# the per-layer metrics that read the program's record, by cell
+PROGRAM = {"vitl.offline_720p": [f"offline.{n}" for n in WINDOW],
+           "vits.offline_480p": [f"clips.{n}" for n in WINDOW],
+           "vitl.stream_720p": [f"stream.{n}" for n in STREAM]}
+# the metrics the CPU cannot give: device time
+DEVICE_ONLY = {"stream.context_ms_per_frame",
+               "offline.step_device_ms_per_window",
+               "clips.step_device_ms_per_window"}
 
 
 def _span(i, parent, name, a, b, counters=None, device_ms=None):
@@ -19,9 +35,11 @@ def _span(i, parent, name, a, b, counters=None, device_ms=None):
             "counters": counters or {}, "device_ms": device_ms}
 
 
-def _read(rec, driver, prefix="x"):
-    got = program_readers.metrics(rec, driver, prefix)
-    return {k.split(".", 1)[1]: v["value"] for k, v in got.items()}
+def _read(rec, cell):
+    """Every program metric of ``cell`` the record gives, by its name
+    without the cell's prefix."""
+    got = {n: harness.load_reader(n)(rec) for n in PROGRAM[cell]}
+    return {n.split(".", 1)[1]: v for n, v in got.items() if v is not None}
 
 
 def test_offline_readers_on_a_synthetic_video():
@@ -37,7 +55,8 @@ def test_offline_readers_on_a_synthetic_video():
             t += ms
     spans.append(_span(len(spans), 0, "video.stitch", t, t + 6))
     spans.append(_span(len(spans), 2, "encoder", 6, 9, device_ms=2.0))
-    got = _read({"program": {"spans": spans}, "wall_s": 0.13}, "offline")
+    got = _read({"program": {"spans": spans}, "wall_s": 0.13},
+                "vitl.offline_720p")
     assert got == pytest.approx({
         "upload_ms_per_window": 5.0, "wait_ms_per_window": 20.0,
         "fetch_ms_per_window": 8.0,
@@ -49,7 +68,7 @@ def test_offline_readers_on_a_synthetic_video():
         "outside_video_ms_per_window": 30 / 2})
     # without the wall time, nothing outside the video to read
     assert "outside_video_ms_per_window" not in _read(
-        {"program": {"spans": spans}}, "offline")
+        {"program": {"spans": spans}}, "vits.offline_480p")
 
 
 def test_self_time_on_a_synthetic_tree():
@@ -60,7 +79,7 @@ def test_self_time_on_a_synthetic_tree():
              _span(4, 0, "video.stitch", 90, 130),  # past the video's end
              _span(5, None, "video", 200, 210, {"frames": 1, "windows": 1}),
              dict(_span(6, 5, "window.upload", 205, 0), end_ns=None)]
-    got = program_readers.driver_self_ms_per_window(
+    got = harness.load_reader("offline.driver_self_ms_per_window")(
         {"program": {"spans": spans}})
     assert got == pytest.approx((100 - 40 - 10 + 10) / 2)
 
@@ -74,46 +93,57 @@ def test_stream_readers_on_a_synthetic_group():
              _span(4, 0, "stream.context", 4, 5, device_ms=1.5),
              _span(5, 0, "stream.context", 6, 7, device_ms=2.5),
              _span(6, 0, "head.stage", 5, 6, device_ms=9.0)]
-    got = _read({"program": {"spans": spans}}, "stream")
+    got = _read({"program": {"spans": spans}}, "vitl.stream_720p")
     assert got == pytest.approx({
         "upload_ms_per_frame": 3 / 4, "upload_wait_ms_per_frame": 1 / 4,
         "enqueue_ms_per_frame": (20 - 3) / 4,
         "context_ms_per_frame": 4.0 / 4})
     spans[5]["device_ms"] = None  # a span without CUDA events: no reading
     assert "context_ms_per_frame" not in _read({"program": {"spans": spans}},
-                                               "stream")
+                                               "vitl.stream_720p")
 
 
 @pytest.mark.parametrize("rec", [{}, {"program": None},
                                  {"program": {"spans": []}}])
 def test_readers_without_the_program_say_nothing(rec):
-    for driver in program_readers.METRICS:
-        assert program_readers.metrics(rec, driver, "x") == {}
+    for cell in PROGRAM:
+        assert _read(rec, cell) == {}
 
 
-# the metrics the CPU cannot give: device time
-DEVICE_ONLY = {"stream.context_ms_per_frame",
-               "offline.step_device_ms_per_window",
-               "clips.step_device_ms_per_window"}
+def test_every_program_metric_is_in_its_cell():
+    bench = harness.read_json(f"{harness.ROOT}/BENCHMARK.json")
+    for cell, names in PROGRAM.items():
+        entries = {m["name"]: m for m in bench["per_layer"]
+                   if cell in m["workloads"]}
+        assert set(names) <= set(entries), cell
+        assert all(entries[n]["source"] == ("program_counter" if "_mb_" in n
+                                            else "program_span")
+                   for n in names)
 
 
 @pytest.mark.parametrize("name", ["vits.offline_480p", "vitl.stream_720p"])
-def test_a_recorded_tiny_cell_reports_every_metric(name):
+def test_a_traced_tiny_cell_reports_every_metric(monkeypatch, name):
     cell = tiny_cells.cell(name)
-    prog = {}
-    run_cell = session.run_cell
-    with program_spans._recorded(prog):
-        result, _ = session.run_cell(cell, SEED, 1.0, True, "cpu",
-                                     time.perf_counter())
+    records = []
+    load = harness.load_reader
+
+    def spying(metric):
+        read = load(metric)
+        return lambda rec: records.append(rec) or read(rec)
+
+    monkeypatch.setattr(harness, "load_reader", spying)
+    result, _ = session.run_cell(cell, SEED, 1.0, True, "cpu",
+                                 time.perf_counter())
     assert result["correct"], tiny_cells.dump(result)
-    driver = cell.traffic["driver"]
-    prefix = cell.per_layer[0]["name"].split(".")[0]
-    want = {f"{prefix}.{m}" for m, _, _ in program_readers.METRICS[driver]}
+    prog = records[0]["program"]
+    assert prog["spans"] and all(r["program"] is prog for r in records)
+    want = set(PROGRAM[name])
     got = result["metrics"]
     assert want - set(got) == want & DEVICE_ONLY
     assert all(got[k]["value"] >= 0 for k in want - DEVICE_ONLY)
-    h, w = cell.traffic["frame_hw"]
-    if driver == "offline":
+    if cell.traffic["driver"] == "offline":
+        h, w = cell.traffic["frame_hw"]
+        prefix = PROGRAM[name][0].split(".")[0]
         # every source frame of a window is uploaded once a window, and the
         # float16 depths of its 32 frames fetched
         roots = [s for s in prog["spans"] if s["name"] == "video"]
@@ -123,4 +153,23 @@ def test_a_recorded_tiny_cell_reports_every_metric(name):
             windows * 32 * h * w * 3 / 1e6 / frames)
         assert got[f"{prefix}.d2h_mb_per_frame"]["value"] == pytest.approx(
             windows * 32 * h * w * 2 / 1e6 / frames)
-    assert session.run_cell is run_cell  # the harness as it was
+
+
+def test_an_untraced_run_opens_no_recording(monkeypatch):
+    from vda_tpu_torch.utils import trace
+
+    opened = []
+    recording = trace.recording
+    monkeypatch.setattr(trace, "recording",
+                        lambda: opened.append(1) or recording())
+    records = []
+    monkeypatch.setattr(harness, "load_reader",
+                        lambda m: lambda rec: records.append(rec))
+    cell = tiny_cells.cell("vitl.stream_720p")
+    result, _ = session.run_cell(cell, SEED, 1.0, False, "cpu",
+                                 time.perf_counter())
+    assert result["correct"] and not opened and not records
+    assert set(result["metrics"]) == {m["name"] for m in cell.end_to_end}
+    result, _ = session.run_cell(cell, SEED, 1.0, True, "cpu",
+                                 time.perf_counter())
+    assert opened == [1] and records[0]["program"]["spans"]

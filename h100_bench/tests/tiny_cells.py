@@ -12,10 +12,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 LIMITS = {"offline": {"window_err": 0.1, "stitch_err": 1e-3},
           "stream": {"stream_err": 0.1}}
 SMALL = {"frame_hw": [60, 80], "input_size": 56}
+CONFIGS = ("tiny", "tiny_swiglu")
 
 
-def cell(name: str) -> harness.Cell:
-    """The cell ``name`` of BENCHMARK.json with the tiny configuration."""
+def cell(name: str, config: str = "tiny") -> harness.Cell:
+    """The cell ``name`` of BENCHMARK.json with a tiny configuration of
+    this folder (``tiny``: the GELU MLP; ``tiny_swiglu``: vitg's SwiGLU)."""
     bench = harness.read_json(os.path.join(harness.ROOT, "BENCHMARK.json"))
     entry = {w["name"]: w for w in bench["workloads"]}[name]
     traffic = harness.read_json(os.path.join(
@@ -23,7 +25,7 @@ def cell(name: str) -> harness.Cell:
     traffic.update(SMALL)
     if traffic["driver"] == "offline":
         traffic.update(pool=4, clip_lengths=[24, 56])
-    cfg = harness.read_json(os.path.join(HERE, "tiny.json"))
+    cfg = harness.read_json(os.path.join(HERE, config + ".json"))
     pick = lambda ms: [m for m in ms  # noqa: E731
                        if name in m.get("workloads", [name])]
     return harness.Cell(name, cfg, traffic, LIMITS[traffic["driver"]], 1,
