@@ -7,7 +7,9 @@ feed-forward is the GELU MLP (``ffn_layer="mlp"``) or, for vitg, the SwiGLU
 of ``ffn_layer="swiglufused"`` (``mlp.w12``, d -> 2 hidden, and ``mlp.w3``:
 ``w3(silu(x1) * x2)``).  Module names follow the reference state-dict keys.
 Tokens are (B, N, D) and are not padded: the attention kernel takes N as it
-is.
+is.  While a recording is open (``utils/trace.py``) each block's
+feed-forward, from the second LayerNorm's output to before its LayerScale,
+is the device span ``encoder.ffn`` with the counter ``tokens`` (B * N).
 
 ``kernels=True`` routes the attention through K1 where the JAX gate admits
 it (``attention_kernel.use_kernel``); with ``fuse_proj=True`` as well,
@@ -60,6 +62,7 @@ from vda_tpu_torch.ops.layers import (
 )
 from vda_tpu_torch.ops.resize import resize_bicubic
 from vda_tpu_torch.parallel import mesh as tpm
+from vda_tpu_torch.utils import trace
 
 
 class PatchEmbed(nn.Module):
@@ -266,7 +269,9 @@ def _block(blk: Block, x, cfg: EncoderConfig, kernels: bool, fuse_proj: bool,
             h = apply_drop_path(h, masks[0])
         x = x + h
     h = _enter(layer_norm(blk.norm2, x, kernel=ln_kernel), mesh_m, sp)
-    h = _mlp(blk, h, mesh_m, sp)
+    with trace.span("encoder.ffn", device=h):
+        trace.count("tokens", h.shape[0] * h.shape[1])
+        h = _mlp(blk, h, mesh_m, sp)
     h = h * cast_once(blk.ls2.gamma, h.dtype)
     if masks is not None:
         h = apply_drop_path(h, masks[1])

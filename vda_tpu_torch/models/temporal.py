@@ -29,7 +29,11 @@ once the context's rows are distinct, over the cache buffers in place.
 ``ln_kernel`` (default: ``kernels``), so JAX's training set
 (``attn_impl="xla"``) is ``kernels=False, ln_kernel=True``.  The JAX gates
 keep K3, K4 and K6 to APE, so under RoPE K5 takes every attention over
-whole sequences and the kv cache runs plain.
+whole sequences and the kv cache runs plain.  While a recording is open
+(``utils/trace.py``) the route taken adds to a counter of the innermost
+span: ``k3_blocks`` (a block in K3), ``k4_blocks`` (an attention sub-block
+in K4), ``k5_calls`` and ``plain_attn_calls`` (an attention in K5 or in
+plain PyTorch).
 
 Tensor parallelism (``mesh`` with a model axis above 1, over a model that
 ``parallel/mesh.shard_model`` has split): ``to_q`` / ``to_k`` / ``to_v``
@@ -66,6 +70,7 @@ from vda_tpu_torch.ops.layers import (
     linear,
 )
 from vda_tpu_torch.parallel import mesh as tpm
+from vda_tpu_torch.utils import trace
 
 
 def sinusoidal_pe(max_len: int, d_model: int) -> torch.Tensor:
@@ -218,7 +223,9 @@ def _attend(q, k, v, heads: int, kernels: bool):
     t_full = k.shape[1]
     dh = c // heads
     if kernels and ts.use_kernel(t_q, t_full, dh):
+        trace.count("k5_calls", 1)
         return ts.tiny_seq_attention(q, k, v, heads, dh ** -0.5)
+    trace.count("plain_attn_calls", 1)
     return attention_plain(q.reshape(bd, t_q, heads, dh),
                            k.reshape(bd, t_full, heads, dh),
                            v.reshape(bd, t_full, heads, dh),
@@ -316,6 +323,7 @@ def _temporal_attention_kv(attn: TemporalAttention, h, cfg: ModelConfig,
         q = split.rope(linear(attn.to_q, h), d_in)
         k = split.rope(k, 0)
     heads, dh = split.heads, split.dh
+    trace.count("plain_attn_calls", 1)
     o = attention_plain(q.reshape(bd, t_new, heads, dh),
                         k.reshape(bd, t_full, heads, dh),
                         v.reshape(bd, t_full, heads, dh),
@@ -407,6 +415,7 @@ def _transformer_block(block: TemporalTransformerBlock, h, cfg: ModelConfig,
     for i, (attn, norm) in enumerate(zip(block.attention_blocks,
                                          block.norms)):
         if use_k4:
+            trace.count("k4_blocks", 1)
             h = tk.attention_block_fused(attn, norm, h, attn.pos_encoder.pe[0],
                                          heads)
             continue
@@ -452,6 +461,7 @@ def temporal_module_apply(mm: TemporalModule, x, cfg: ModelConfig,
     all_caches = []
     for i, block in enumerate(tt.transformer_blocks):
         if use_k3:
+            trace.count("k3_blocks", 1)
             pe = block.attention_blocks[0].pos_encoder.pe[0]
             h = tk.temporal_block_fused(block, h, pe, heads)
             continue

@@ -41,9 +41,15 @@ Spans of the port (host spans unless marked "device"):
     ``video.stitch`` (counter ``stitch_converted_frames``, the window
     depths the stitch had to copy to fp32 C-contiguous first; 0 on this
     path).
-  * the model: ``encoder``, ``head.stage`` (in it ``head.project_resize``
-    and ``head.temporal_mm0`` .. ``head.temporal_mm3``) and ``head.tail``
-    (in it each ``head.output_tail`` chunk), all device.
+  * the model: ``encoder`` (in it each block's feed-forward,
+    ``encoder.ffn``, with the counter ``tokens``: rows times batch),
+    ``head.stage`` (in it ``head.project_resize`` and ``head.temporal_mm0``
+    .. ``head.temporal_mm3``) and ``head.tail`` (in it each
+    ``head.output_tail`` chunk), all device.  A motion module's span counts
+    the route of its attention (``models/temporal.py``): ``k3_blocks`` (a
+    transformer block in K3, fused or the chain), ``k4_blocks`` (an
+    attention sub-block in K4), ``k5_calls`` (an attention in K5) and
+    ``plain_attn_calls`` (one in plain PyTorch).
   * ``StreamingDepth``: ``stream.step`` (the root of ``submit``) and
     ``stream.group`` (of ``submit_group``), both device with the counter
     ``frames`` and the first frame's id as the request; ``stream.upload``
