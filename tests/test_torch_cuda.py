@@ -1678,3 +1678,111 @@ def test_no_synchronising_call_in_a_steady_submit_or_a_forward(gen):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def _tiny_card_model(gen):
+    cfg = ModelConfig("tiny", 32, (32, 32, 32, 32), (0, 0, 1, 1),
+                      EncoderConfig(embed_dim=64, depth=2, num_heads=2,
+                                    img_size=56), num_attention_heads=4)
+    return vt.init_random(cfg, gen, device="cuda").requires_grad_(False)
+
+
+@pytest.mark.parametrize("fp32", [False, True])
+def test_window_staging_pinned_and_reused(gen, monkeypatch, fp32):
+    """Two videos of 60x80 frames (4 windows, then 2; views into wider
+    frames) through the window driver: its upload slots and fetch buffer
+    are pinned, made once and kept for the second video (the same host
+    memory); the refills wait
+    where a slot had a copy (``window.upload_wait`` under the third and
+    fourth uploads, then every upload of the kept slots); every step but a
+    video's first counts ``overlapped``; the first video's depths handed
+    to the stitch are its own, unchanged by the second; and the depths
+    equal, bit for bit, a serial loop of ``_window_step`` on the card.
+    ``fp32``: the depths cross in fp32, so the fetch buffer has the dtype
+    of the arrays handed to the stitch, which must still be new ones."""
+    from vda_tpu_torch.infer import windowed as tw
+    from vda_tpu_torch.utils import trace
+
+    monkeypatch.setattr(tw, "_STAGING", {})
+    model = _tiny_card_model(gen)
+    # a strided view, as a camera panning over a wider canvas gives
+    frames = (np.random.default_rng(6).random((70, 60, 96, 3))
+              * 255).astype(np.uint8)[:, :, 8:88]
+    captured = []
+    stitch = tw.stitch_windows
+
+    def capture(depth_list, *args, **kwargs):
+        captured.append(depth_list)
+        return stitch(depth_list, *args, **kwargs)
+
+    monkeypatch.setattr(tw, "stitch_windows", capture)
+    with trace.recording() as rec:
+        got, _ = vt.infer_video_depth(model, frames, 30.0, input_size=56,
+                                      fp32=fp32)
+    (staging,) = tw._STAGING[torch.device("cuda", 0)]
+    bufs = [slot[0] for slot in staging.upload.slots] + [staging.host]
+    assert all(b.is_pinned() for b in bufs)
+    ptrs = [b.data_ptr() for b in bufs]
+    kept = [np.array(a) for a in captured[0]]
+    with trace.recording() as rec2:
+        vt.infer_video_depth(model, frames[::-1][:30].copy(), 30.0,
+                             input_size=56, fp32=fp32)
+    assert tw._STAGING[torch.device("cuda", 0)] == [staging]
+    bufs = [slot[0] for slot in staging.upload.slots] + [staging.host]
+    assert [b.data_ptr() for b in bufs] == ptrs
+    assert all(np.array_equal(a, b) for a, b in zip(captured[0], kept))
+    for r, waits in ((rec, [False, False, True, True]), (rec2, [True] * 2)):
+        spans = r.snapshot()["spans"]
+        uploads = [s for s in spans if s["name"] == "window.upload"]
+        assert [any(c["parent"] == u["id"] and
+                    c["name"] == "window.upload_wait" for c in spans)
+                for u in uploads] == waits
+        steps = [s for s in spans if s["name"] == "window.step"]
+        assert [s["counters"].get("overlapped", 0) for s in steps] == \
+            [0] + [1] * (len(steps) - 1)
+        assert all(s["device_ms"] is not None for s in steps)
+    # the serial loop
+    from vda_tpu_torch.utils.transform import (compute_resize_hw,
+                                               effective_input_size)
+
+    net_hw = compute_resize_hw(60, 80, effective_input_size(60, 80, 56))
+    idx = tw.window_source_indices(frames.shape[0])
+    host = []
+    for w in range(idx.shape[0]):
+        u8 = torch.from_numpy(frames[idx[w:w + 1]]).cuda()
+        d = tw._window_step(model, u8, net_hw, (60, 80), F32 if fp32 else BF,
+                            "auto", 16, False, False)
+        host.extend(d[0].float().cpu().numpy())
+    assert all(np.array_equal(a, b) for a, b in zip(captured[0], host))
+    ref = np.asarray(stitch(host, metric=model.cfg.metric)[:70])
+    assert np.array_equal(got, ref)
+
+
+def test_stream_uploads_through_the_shared_helper(gen):
+    """The stream's uploads go through ``staging.Upload`` on the current
+    stream: spans ``stream.upload`` with the frame's ``h2d_bytes`` and, from
+    a helper's third copy on, ``stream.upload_wait`` below it; the frame's
+    two slots pinned."""
+    from vda_tpu_torch.infer.staging import Upload
+    from vda_tpu_torch.utils import trace
+
+    model = _tiny_card_model(gen)
+    stream = vt.StreamingDepth(model, input_size=56)
+    assert isinstance(stream._upload_frame, Upload)
+    assert stream._upload_frame.copy_stream is None
+    frames = (np.random.default_rng(7).random((4, 60, 80, 3))
+              * 255).astype(np.uint8)
+    with trace.recording() as rec:
+        for f in frames:
+            stream.submit(f)
+    torch.cuda.synchronize()
+    spans = rec.snapshot()["spans"]
+    steps = [s for s in spans if s["name"] == "stream.step"]
+    firsts = [next(c for c in spans if c["parent"] == s["id"])
+              for s in steps]
+    assert [c["name"] for c in firsts] == ["stream.upload"] * 4
+    assert [c["counters"] for c in firsts] == [{"h2d_bytes": 60 * 80 * 3}] * 4
+    waits = [any(c["parent"] == u["id"] and c["name"] == "stream.upload_wait"
+                 for c in spans) for u in firsts]
+    assert waits == [False, False, True, True]
+    assert all(slot[0].is_pinned() for slot in stream._upload_frame.slots)

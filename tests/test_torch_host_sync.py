@@ -129,9 +129,9 @@ def test_cpu_stream_matches_jax_without_pinned_buffers():
 
 
 def test_upload_on_the_cpu_moves_the_tensor_as_it_is():
-    from vda_tpu_torch.infer.streaming import _Upload
+    from vda_tpu_torch.infer.staging import Upload
 
-    up = _Upload("cpu")
+    up = Upload("cpu")
     host = torch.arange(12, dtype=torch.int64)
     out = up(host)
     assert torch.equal(out, host) and up.slots == [None, None]

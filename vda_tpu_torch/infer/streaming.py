@@ -46,7 +46,7 @@ raise.
 
 ``submit`` returns without waiting for the device, as JAX's does: the frame
 and the context row ids reach the card by non-blocking copies from pinned
-host buffers (``_Upload``), and the resize matrices and normalisation
+host buffers (``staging.Upload``), and the resize matrices and normalisation
 constants come from device caches, so a steady step makes no synchronising
 call.
 """
@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from vda_tpu_torch.config import INFER_LEN, STREAM_GAP, STREAM_MAX_CACHE
+from vda_tpu_torch.infer.staging import Upload
 from vda_tpu_torch.models.dpt import (
     dpt_head_temporal_stage,
     dpt_head_temporal_tail,
@@ -120,48 +121,6 @@ def _pos_map(ctx_rows: List[int]):
         pos_map[r] = i
         valid[r] = True
     return pos_map, valid
-
-
-class _Upload:
-    """Host-to-device copies that do not make the host wait: each host
-    tensor is staged in one of two pinned buffers, used in turn, and copied
-    with ``non_blocking=True``.  Before a buffer is refilled the host waits
-    on the event recorded after its previous copy (the copy of two calls
-    ago), since overwriting a pinned buffer while its copy is in flight
-    would corrupt that copy.  On a device other than CUDA (the CPU, whose
-    PyTorch may be built without CUDA and cannot pin) the tensor is moved
-    as it is."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self.slots = [None, None]  # (pinned buffer, event after its copy)
-        self.turn = 0
-
-    def __call__(self, host: torch.Tensor) -> torch.Tensor:
-        with trace.span("stream.upload"):
-            if host.device.type == "cpu":  # not a tensor already on a card
-                trace.count("h2d_bytes", host.nbytes)
-            return self._copy(host)
-
-    def _copy(self, host: torch.Tensor) -> torch.Tensor:
-        if self.device.type != "cuda" or host.device.type != "cpu":
-            return host.to(self.device)
-        slot, self.turn = self.slots[self.turn], self.turn ^ 1
-        buf = None
-        if slot is not None:
-            buf, event = slot
-            with trace.span("stream.upload_wait"):
-                event.synchronize()
-            if buf.shape != host.shape or buf.dtype != host.dtype:
-                buf = None
-        if buf is None:
-            buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        buf.copy_(host)
-        out = buf.to(self.device, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        self.slots[self.turn ^ 1] = (buf, event)
-        return out
 
 
 def _row(entry_id: int) -> int:
@@ -459,10 +418,10 @@ class StreamingDepth:
         self._direct = self.ctx_kernel and cache_dtype == "bf16" and all(
             sk.use_kernel(1, c, cfg.num_attention_heads, cfg.pe)
             for c in widths)
-        self._upload_frame = _Upload(self.device)
-        self._upload_rows = _Upload(self.device)
-        self._upload_pos = _Upload(self.device)
-        self._upload_valid = _Upload(self.device)
+        self._upload_frame = Upload(self.device)
+        self._upload_rows = Upload(self.device)
+        self._upload_pos = Upload(self.device)
+        self._upload_valid = Upload(self.device)
         self.reset()
 
     def reset(self) -> None:

@@ -2,26 +2,33 @@
 
 Counterpart of ``vda_tpu/infer/windowed.py`` ``infer_video_depth`` on one
 device: every window's input is a direct gather of source frames
-(``window_source_indices``, copied), preprocessing and the forward run on
-the device, the final resize to the frame size runs in fp32, depths cross to
-the host in float16 (fp32 with ``fp32=True``), and the host stitches the
-windows (``stitching.stitch_windows``: in place into one fp32 array on
-torch's intra-op threads, bit for bit with the JAX package's; its first
-N frames are returned without a further copy).  ``window_batch`` runs that
-many windows as the batch of one forward on the device, each window its own
-sequence of frames.  ``mesh`` (``parallel/mesh.make_mesh``) fans that batch
-out over the data axis and runs each rank's windows tensor-parallel over
-the model axis; every rank returns the whole stitched video.
+(``window_source_indices``, gathered into pinned memory and copied),
+preprocessing and the forward run on the device, the final resize to the
+frame size runs in fp32, depths cross to the host in float16 (fp32 with
+``fp32=True``) through pinned memory, and the host stitches the windows
+(``stitching.stitch_windows``: in place into one fp32 array on torch's
+intra-op threads, bit for bit with the JAX package's; its first N frames
+are returned without a further copy).  ``window_batch`` runs that many
+windows as the batch of one forward on the device, each window its own
+sequence of frames.  Dispatch is double-buffered, as JAX's: batch n+1's
+upload and step are enqueued before the host waits for batch n's depths,
+so at most two batches are in flight; on a card both copies run on a copy
+stream of their own (``_Staging``), ordered to the compute stream by
+events.  ``mesh`` (``parallel/mesh.make_mesh``) fans that batch out over
+the data axis and runs each rank's windows tensor-parallel over the model
+axis; every rank returns the whole stitched video.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from vda_tpu_torch.config import INFER_LEN, KEYFRAMES, OVERLAP
+from vda_tpu_torch.infer.staging import Upload
 from vda_tpu_torch.infer.stitching import stitch_windows
 from vda_tpu_torch.models.vda import VideoDepthAnything, forward
 from vda_tpu_torch.ops.resize import resize_bilinear
@@ -62,6 +69,64 @@ def window_source_indices(n_frames: int) -> np.ndarray:
             idx[w, 1:OVERLAP] = (w - 1) * FRAME_STEP + kf[1:]
             idx[w, OVERLAP:] = w * FRAME_STEP + np.arange(OVERLAP, INFER_LEN)
     return np.minimum(idx, n_frames - 1)
+
+
+class _Staging:
+    """The window driver's host side on one device, kept from one video to
+    the next (``_staging``).  ``upload`` gathers each batch's frames into
+    one of two pinned slots and copies them on ``copy_stream``; ``fetch``
+    copies a batch's depths on the same stream, behind its step, into one
+    pinned buffer, which the host reads before the next fetch is enqueued.
+    On a device other than CUDA: the tensors as they are, nothing pinned,
+    no stream."""
+
+    def __init__(self, device: torch.device):
+        cuda = device.type == "cuda"
+        self.copy_stream = torch.cuda.Stream(device) if cuda else None
+        self.upload = Upload(device, "window", self.copy_stream)
+        self.host = None  # the pinned buffer of fetched depths
+
+    def fetch(self, depths: torch.Tensor):
+        """Enqueue the copy of ``depths`` to the host behind the work queued
+        so far on the current stream.  Returns (host tensor, event after
+        the copy or None): the host tensor holds the depths once the event
+        has passed, until the next fetch."""
+        if self.copy_stream is None:
+            return depths.cpu(), None
+        buf = self.host
+        if (buf is None or buf.dtype != depths.dtype
+                or buf.shape[1:] != depths.shape[1:]
+                or buf.shape[0] < depths.shape[0]):
+            buf = self.host = torch.empty(depths.shape, dtype=depths.dtype,
+                                          pin_memory=True)
+        host = buf[:depths.shape[0]]
+        self.copy_stream.wait_stream(
+            torch.cuda.current_stream(self.copy_stream.device))
+        with torch.cuda.stream(self.copy_stream):
+            host.copy_(depths, non_blocking=True)
+        depths.record_stream(self.copy_stream)
+        copied = torch.cuda.Event()
+        copied.record(self.copy_stream)
+        return host, copied
+
+
+_STAGING: Dict[torch.device, List[_Staging]] = {}
+
+
+@contextlib.contextmanager
+def _staging(device: torch.device):
+    """A ``_Staging`` of ``device`` for one video: the one the last video
+    returned, else a new one (two videos at once on a device take one
+    each)."""
+    free = _STAGING.setdefault(device, [])
+    try:
+        staging = free.pop()
+    except IndexError:
+        staging = _Staging(device)
+    try:
+        yield staging
+    finally:
+        free.append(staging)
 
 
 @torch.no_grad()
@@ -141,29 +206,45 @@ def infer_video_depth(
         wb = -(-wb // dp) * dp  # the window batch fills the data axis
         per = wb // dp
         host_depths = []
-        for start in range(0, n_windows, wb):
-            batch_idx = idx[start:start + wb]
-            n_valid = batch_idx.shape[0]
-            if n_valid < wb:
-                batch_idx = np.concatenate(
-                    [batch_idx, batch_idx[-1:].repeat(wb - n_valid, 0)])
-            mine = batch_idx[rank * per:(rank + 1) * per]
-            with trace.span("window.upload"):
-                u8 = torch.from_numpy(frames[mine]).to(device)
-                trace.count("h2d_bytes", u8.nbytes)
-            with trace.span("window.step", device=u8):
-                d = _window_step(model, u8, net_hw, (frame_h, frame_w), dtype,
-                                 attn_impl, micro_batch_size, fuse_proj,
-                                 resize_kernel)
-                if dp > 1:
-                    d = tpm.all_gather(d, mesh.data_group, 0)
-            trace.wait("window.wait", d)
+
+        def receive(host, copied, n_done):
+            with trace.span("window.wait"):
+                if copied is not None:
+                    copied.synchronize()
             with trace.span("window.fetch"):
-                d = d[:n_valid].flatten(0, 1)
-                trace.count("d2h_bytes", d.nbytes)
-                host_depths.extend(d.cpu().float().numpy())
+                trace.count("d2h_bytes", host.nbytes)
+                # new fp32 arrays: ``host`` may be a reused pinned buffer
+                host_depths.extend(host.to(torch.float32, copy=True).numpy())
             if progress is not None:
-                progress(start + n_valid, n_windows)
+                progress(n_done, n_windows)
+
+        with _staging(device) as staging:
+            queued = None  # the last batch's depths and windows done
+            for start in range(0, n_windows, wb):
+                batch_idx = idx[start:start + wb]
+                n_valid = batch_idx.shape[0]
+                if n_valid < wb:
+                    batch_idx = np.concatenate(
+                        [batch_idx, batch_idx[-1:].repeat(wb - n_valid, 0)])
+                mine = batch_idx[rank * per:(rank + 1) * per]
+                u8 = staging.upload.take(frames, mine)
+                # the last batch's copy to the host, on the copy stream
+                # behind this batch's upload (and before this batch's step
+                # is enqueued, so it waits for the last step alone)
+                fetched = staging.fetch(queued[0]) if queued else None
+                with trace.span("window.step", device=u8):
+                    if queued is not None:
+                        trace.count("overlapped", 1)
+                    d = _window_step(model, u8, net_hw, (frame_h, frame_w),
+                                     dtype, attn_impl, micro_batch_size,
+                                     fuse_proj, resize_kernel)
+                    if dp > 1:
+                        d = tpm.all_gather(d, mesh.data_group, 0)
+                if fetched is not None:
+                    receive(*fetched, queued[1])
+                queued = (d[:n_valid].flatten(0, 1), start + n_valid)
+            if queued is not None:
+                receive(*staging.fetch(queued[0]), queued[1])
         with trace.span("video.stitch"):
             aligned = stitch_windows(host_depths, metric=cfg.metric)
         # a view of the stitched array (a stitch swapped in that returns a

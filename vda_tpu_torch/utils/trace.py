@@ -8,9 +8,9 @@ memory while a recording is open.
     spans = rec.snapshot()["spans"]
 
 Recording is off unless ``recording()`` is open.  Off, ``span`` is one test
-of a module flag returning a shared no-op context, and ``count`` and
-``wait`` one test that returns: no CUDA event, no profiler range, no
-allocation and no synchronisation.
+of a module flag returning a shared no-op context, and ``count`` one test
+that returns: no CUDA event, no profiler range, no allocation and no
+synchronisation.
 
 While recording, each span keeps its name, a unique ``id``, its
 ``parent``'s id (None for a root), a ``request`` id shared by every span
@@ -33,12 +33,16 @@ Spans of the port (host spans unless marked "device"):
 
   * ``infer_video_depth``: ``video`` (the root; counters ``frames``, the
     source frames, and ``windows``), and for each window batch
-    ``window.upload`` (the host gather of the window's frames and their
-    copy to the device; ``h2d_bytes``), ``window.step`` (device; the
-    forward's enqueue), ``window.wait`` (the host blocked until the device
-    has run the step), ``window.fetch`` (the depths' copy to the host, the
-    float16 -> float32 cast and the list extend; ``d2h_bytes``); then
-    ``video.stitch`` (counter ``stitch_converted_frames``, the window
+    ``window.upload`` (the host gather of the batch's frames into a pinned
+    slot and their copy's enqueue; ``h2d_bytes``) with
+    ``window.upload_wait`` (the host waiting for the slot's copy of two
+    batches ago), ``window.step`` (device; the forward's enqueue; counter
+    ``overlapped``, 1 where an earlier batch of the video is still
+    unfetched), then, once the next batch's step is enqueued (after the
+    last batch, at once), ``window.wait`` (the host blocked until the
+    depths' copy to the host has run, behind the step) and
+    ``window.fetch`` (the float16 -> float32 cast into new arrays and the
+    list extend; ``d2h_bytes``); then ``video.stitch`` (counter ``stitch_converted_frames``, the window
     depths the stitch had to copy to fp32 C-contiguous first; 0 on this
     path).
   * the model: ``encoder`` (in it each block's feed-forward,
@@ -217,21 +221,6 @@ def count(key: str, n) -> None:
     if _recorder is None:
         return
     _recorder.count(key, n)
-
-
-def wait(name: str, device) -> None:
-    """While recording, a span ``name`` in which the host waits for the
-    work queued so far on ``device``'s current CUDA stream (an event
-    recorded now and synchronised).  Off, or on another device, the host
-    does not wait."""
-    if _recorder is None:
-        return
-    with _Span(_recorder, name, None, None):
-        dev = _cuda(device)
-        if dev is not None:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-            event.synchronize()
 
 
 def profiler_offset_ns(snapshot: dict, events) -> Optional[int]:
